@@ -1,0 +1,296 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Phases, each reported on its own lines:
+  1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
+  2. build of the CUDA kernels from csrc/ (nvcc, first use);
+  3. the fused decode-window kernel against its plain PyTorch version on the
+     card, at 640x480 and 1920x1088, W=20, both output layouts, row folds 1
+     and 2, realistic and full-range int16 amplitudes, a leading P-frame on
+     a random carry: frames and carry must be byte-equal;
+  4. the main path: DecodePipeline(device="cuda").decode_array on two
+     encoded clips, byte-equal to the same pipeline's plain PyTorch path on
+     the CPU (DecodePipeline(device="cpu"), itself held against the NumPy
+     oracle decoder in tests/test_torch_pipeline.py), within a PSNR bound of
+     the source frames, with one kernel launch per window;
+  5. timings with CUDA events (median of repeated warm runs) and the
+     end-to-end decode rate.
+
+The codec is integer arithmetic, so every comparison has tolerance 0.  The
+second-to-last line is a JSON object describing each kernel; the last is
+{"ok": true, "device": {...}}, printed only when every phase passed.  The
+script exits nonzero without a result when torch sees no CUDA device.
+"""
+from __future__ import annotations
+
+import sys
+
+# The port must never reach jax: make any import of it fail loudly.
+sys.modules["jax"] = None
+
+import json  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import time  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+W = 20
+GEOMS = {"640x480": (480, 640), "1920x1088": (1088, 1920)}
+KERNEL_SOURCE = "mjpeg423_tpu_torch/csrc/decode_window.cu"
+REPLACES = "mjpeg423_tpu/ops/transform_fused.py:193"
+REPS = 20
+# The synthetic clips decode at ~33.5 dB against their source (measured at
+# 640x480 and 240x136 with the plain CPU path); garbage frames sit far below.
+MIN_PSNR_DB = 30.0
+
+
+def synthetic_clip(rng, num_frames: int, h: int, w: int) -> list[np.ndarray]:
+    """Gradients under a fixed noise texture, a bright square moving over
+    them and a dark corner: DC chains, clamping, and frames the encoder
+    codes as P-frames between its forced I-frames."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.empty((h, w, 3), dtype=np.float32)
+    base[..., 0] = xx * 255 / w
+    base[..., 1] = yy * 255 / h
+    base[..., 2] = ((xx + yy) * 2) % 256
+    base += rng.integers(0, 12, size=(h, w, 3))
+    frames = []
+    for t in range(num_frames):
+        f = base.copy()
+        x0 = (t * 7 * w // 48) % (w - w // 8)
+        y0 = (t * 5 * h // 32) % (h - h // 8)
+        f[y0:y0 + h // 8, x0:x0 + w // 8] = 255
+        f[: h // 16, : w // 16] = 0
+        frames.append(np.clip(f, 0, 255).astype(np.uint8))
+    return frames
+
+
+def as_u64(t: torch.Tensor) -> torch.Tensor:
+    """uint32 words as non-negative int64 (uint32 has few CUDA ops)."""
+    return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def time_cuda(fn, reps: int = REPS) -> float:
+    """Median milliseconds of fn() over reps warm runs, by CUDA events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+
+    from mjpeg423_tpu_torch.codec import encode_frames, index_frames
+    from mjpeg423_tpu_torch.ops import _build, transform_fused as tf
+    from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
+
+    failures: list[str] = []
+    dev = torch.device("cuda", 0)
+
+    # ---- 1. the card -----------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi)
+    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}", flush=True)
+
+    # ---- 2. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"[build] {time.perf_counter() - t0:.2f} s -> "
+          f"{_build.BUILD / _build.LIB_NAME}")
+    log = _build.BUILD / "ptxas.log"
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] ptxas: {line.strip()}")
+    sys.stdout.flush()
+
+    # ---- 3. kernel vs plain version on the card --------------------------
+    rng = np.random.default_rng(423)
+    max_err = 0
+    inputs = {}
+    for gname, (h, w) in GEOMS.items():
+        bh, bw = h // 8, w // 8
+        nb = bh * bw
+        for kind, (lo, hi) in (("realistic", (-2047, 2048)),
+                               ("full-range", (-32768, 32768))):
+            amps = torch.from_numpy(
+                rng.integers(lo, hi, size=(3, W, nb, 64), dtype=np.int16)
+            ).to(dev)
+            seg_np = rng.random(W) < 0.25
+            seg_np[0] = False  # leading P-frame continues the random carry
+            seg = torch.from_numpy(seg_np).to(dev)
+            carry = torch.from_numpy(
+                rng.integers(-32768, 32768, size=(3, nb, 64), dtype=np.int16)
+            ).to(dev)
+            if kind == "realistic":
+                inputs[gname] = (amps, seg, carry, bh, bw)
+            for raster in (True, False):
+                for k in (1, 2):
+                    kw = dict(blocks_h=bh, blocks_w=bw, raster=raster,
+                              rows_per_step=k)
+                    fk, ck = tf.decode_window_fused(amps, seg, carry, **kw)
+                    torch.cuda.synchronize()
+                    fp, cp = tf.decode_window_fused_ref(amps, seg, carry, **kw)
+                    torch.cuda.synchronize()
+                    f_eq = fk.shape == fp.shape and torch.equal(
+                        fk.view(torch.int32), fp.view(torch.int32))
+                    c_eq = torch.equal(ck, cp)
+                    err = 0
+                    if fk.shape == fp.shape:
+                        err = max(
+                            int((as_u64(fk) - as_u64(fp)).abs().max()),
+                            int((ck.int() - cp.int()).abs().max()),
+                        )
+                    max_err = max(max_err, err)
+                    ok = f_eq and c_eq
+                    print(f"[kernel-vs-plain] {gname} {kind} raster={raster} "
+                          f"k={k} seg={''.join('I' if s else 'P' for s in seg_np)}: "
+                          f"frames byte-equal={f_eq} carry byte-equal={c_eq} "
+                          f"max_abs_err={err} {'PASS' if ok else 'FAIL'}",
+                          flush=True)
+                    if not ok:
+                        failures.append(f"kernel-vs-plain {gname} {kind} "
+                                        f"raster={raster} k={k}")
+
+    # ---- 4. main path ----------------------------------------------------
+    clips = {}
+    plain = DecodePipeline(device="cpu")
+    for gname, nf, gop in (("1920x1088", 30, 12), ("640x480", 48, 24)):
+        h, w = GEOMS[gname]
+        src = synthetic_clip(rng, nf, h, w)
+        t0 = time.perf_counter()
+        mpg = encode_frames(src, max_i_interval=gop)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = plain.decode_array(mpg)
+        t_ref = time.perf_counter() - t0
+        clips[gname] = (mpg, want, nf, src)
+        types = "".join("I" if i else "P" for i in index_frames(mpg).is_iframe)
+        print(f"[main] clip {gname}: {nf} frames {types}, {len(mpg)} bytes; "
+              f"host encode {t_enc:.2f} s, plain PyTorch decode on the CPU "
+              f"{t_ref:.2f} s", flush=True)
+
+    pipe = DecodePipeline(device="cuda")
+    for gname in clips:
+        h, w = GEOMS[gname]
+        pipe.warmup(w, h)
+    tf.LAUNCHES = 0
+    got_all = {}
+    for gname, (mpg, _want, _nf, _src) in clips.items():
+        t0 = time.perf_counter()
+        got_all[gname] = pipe.decode_array(mpg)
+        print(f"[main] decode_array {gname} on cuda: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    launches = tf.LAUNCHES
+    windows = sum(-(-nf // pipe.config.frames_per_batch)
+                  for _mpg, _w, nf, _s in clips.values())
+    ok = launches == windows
+    print(f"[main] kernel launches {launches}, windows decoded {windows} "
+          f"{'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("main path launches")
+    for gname, (mpg, want, nf, src) in clips.items():
+        got = got_all[gname]
+        same = got.shape == want.shape and got.dtype == want.dtype and \
+            np.array_equal(got, want)
+        rgb = np.stack([(got >> s) & 0xFF for s in (16, 8, 0)], axis=-1)
+        err = rgb.astype(np.float64) - np.stack(src).astype(np.float64)
+        psnr = 10 * np.log10(255.0 ** 2 / (err ** 2).mean(axis=(1, 2, 3)))
+        ok = same and got.shape == (nf, *GEOMS[gname]) and \
+            float(psnr.min()) >= MIN_PSNR_DB
+        print(f"[main] decode_array {gname}: shape {got.shape} {got.dtype}, "
+              f"byte-equal to the plain CPU path={same}, PSNR vs source "
+              f"min {psnr.min():.2f} dB mean {psnr.mean():.2f} dB "
+              f"(bound {MIN_PSNR_DB} dB) {'PASS' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"main path {gname}")
+
+    # ---- 5. timings ------------------------------------------------------
+    timing = {}
+    for gname, (amps, seg, carry, bh, bw) in inputs.items():
+        kw = dict(blocks_h=bh, blocks_w=bw, raster=False, rows_per_step=1)
+        k_ms = time_cuda(lambda: tf.decode_window_fused(amps, seg, carry, **kw))
+        kr_ms = time_cuda(lambda: tf.decode_window_fused(
+            amps, seg, carry, **{**kw, "raster": True}))
+        p_ms = time_cuda(
+            lambda: tf.decode_window_fused_ref(amps, seg, carry, **kw), reps=10)
+        timing[gname] = (k_ms, p_ms)
+        print(f"[time] {gname} W={W}: kernel {k_ms:.4f} ms/window "
+              f"({W / k_ms * 1e3:.1f} frames/s) blocked, {kr_ms:.4f} ms "
+              f"raster; plain PyTorch {p_ms:.4f} ms/window "
+              f"({W / p_ms * 1e3:.1f} frames/s); kernel/plain speedup "
+              f"{p_ms / k_ms:.2f}x", flush=True)
+
+    e2e = {}
+    for gname, (mpg, _want, nf, _src) in clips.items():
+        p2 = DecodePipeline(device="cuda")
+        h, w = GEOMS[gname]
+        p2.warmup(w, h)
+        p2.decode_array(mpg)
+        p2.profiler = prof = Profiler()
+        runs = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            p2.decode_array(mpg)
+            runs.append(time.perf_counter() - t0)
+        med = statistics.median(runs)
+        e2e[gname] = nf / med
+        print(f"[e2e] {gname}: decode_array {nf} frames, median of "
+              f"{len(runs)} {med * 1e3:.2f} ms -> {nf / med:.1f} frames/s "
+              f"(min {nf / max(runs):.1f}, max {nf / min(runs):.1f})")
+        for line in prof.format_report().splitlines():
+            print(f"[e2e] {gname} probe {line}")
+        sys.stdout.flush()
+
+    if failures:
+        print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
+        return 1
+    k_ms, p_ms = timing["1920x1088"]
+    v_ms, vp_ms = timing["640x480"]
+    print(json.dumps({"kernels": [{
+        "name": "decode_window_fused",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": REPLACES,
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "shape": f"W={W} 1920x1088 blocked",
+        "ms_640x480": v_ms,
+        "plain_ms_640x480": vp_ms,
+        "e2e_frames_per_s": e2e,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,297 @@
+// Fused MJPEG423 decode window for Hopper (sm_90a).
+//
+// Replaces mjpeg423_tpu/ops/transform_fused.py::decode_window_fused (the
+// Pallas kernel at its pallas_call, body _make_kernel -> _window_body ->
+// _idct_cm).  For every frame of a window and every 8x8 block:
+//   int16 dequant (wrapping) -> state update (I-frame replaces, P-frame adds
+//   with int16 wrap) -> islow 2-D IDCT in int32 fixed point -> clamp 0..255
+//   -> 14-bit YCbCr->RGB -> BGRA word b | g<<8 | r<<16.
+// The coefficient state of the window's last frame is written back as the
+// carry for the next window.
+//
+// What bounds it on this card: integer ALU work, not HBM.  The JAX cost
+// model counts ~7,800 int ops per block-frame against 640 bytes moved
+// (3 x 128 B of amplitudes in, 256 B of pixels out), ~12 ops per byte,
+// above the ~5 int32 ops per byte at which an H100's integer pipes
+// (~17 T op/s) and its HBM (3.35 TB/s) balance.  The design therefore
+// keeps every intermediate out of device memory:
+//   * one thread block owns TILE = 32 image blocks for the whole window;
+//     thread (x, l) with x = threadIdx.x (image block) and l = threadIdx.y
+//     (0..7) holds column l of the three planes' coefficient state in
+//     registers from the first frame to the last, so the carry is read
+//     once and written once and the W-frame recurrence is a loop here;
+//   * per frame the tile's amplitudes arrive in one coalesced 16-byte load
+//     per thread and plane, staged through shared memory;
+//   * pass 1 of the IDCT runs down column l, the workspace goes through
+//     shared memory, pass 2 runs along row l, and the thread then owns
+//     row l of all three planes, which is what the colour convert needs;
+//   * the seg mask and the two quant rows sit in shared memory;
+//   * a warp is 32 neighbouring image blocks at one row, so both output
+//     layouts store in coalesced runs: 32 bytes per thread in raster rows,
+//     or 32 consecutive words per output column in the blocked layout.
+//
+// Overflow: signed int32 overflow is undefined in C++ and nvcc has no
+// -fwrapv, while the reference wraps (JAX int32 and the -fwrapv C codec).
+// Adversarial int16 states do overflow the butterfly, so it runs in
+// uint32_t and each descale shifts the int32_t reinterpretation (an
+// arithmetic shift), which reproduces JAX's int32 bit for bit.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 32;        // image blocks per thread block (= warp width)
+constexpr int LANES = 8;        // threads per image block
+constexpr int MAX_W = 1024;     // frames per window (seg lives in smem)
+// Shared-memory strides in 32-bit words, padded by one so that the 32
+// image blocks of a warp fall in 32 different banks.
+constexpr int IN_STRIDE = 33;   // 64 int16 = 32 words, +1
+constexpr int WS_STRIDE = 65;   // 64 int32 workspace words, +1
+
+constexpr int CONST_BITS = 13;
+constexpr int PASS1_BITS = 2;
+constexpr uint32_t FIX_0_298631336 = 2446;
+constexpr uint32_t FIX_0_390180644 = 3196;
+constexpr uint32_t FIX_0_541196100 = 4433;
+constexpr uint32_t FIX_0_765366865 = 6270;
+constexpr uint32_t FIX_0_899976223 = 7373;
+constexpr uint32_t FIX_1_175875602 = 9633;
+constexpr uint32_t FIX_1_501321110 = 12299;
+constexpr uint32_t FIX_1_847759065 = 15137;
+constexpr uint32_t FIX_1_961570560 = 16069;
+constexpr uint32_t FIX_2_053119869 = 16819;
+constexpr uint32_t FIX_2_562915447 = 20995;
+constexpr uint32_t FIX_3_072711026 = 25172;
+
+constexpr int COLOR_SHIFT = 14;
+constexpr int C_CR_R = 22970;
+constexpr int C_CR_G = 11700;
+constexpr int C_CB_G = 5638;
+constexpr int C_CB_B = 29032;
+
+__device__ __forceinline__ int32_t descale(uint32_t x, int n) {
+    return static_cast<int32_t>(x + (1u << (n - 1))) >> n;
+}
+
+// One islow butterfly (reference: idct.c:41-180), modular in uint32_t.
+template <int N>
+__device__ __forceinline__ void butterfly(const uint32_t x[8], int32_t out[8]) {
+    uint32_t z2 = x[2], z3 = x[6];
+    uint32_t z1 = (z2 + z3) * FIX_0_541196100;
+    const uint32_t tmp2 = z1 - z3 * FIX_1_847759065;
+    const uint32_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = x[0];
+    z3 = x[4];
+    const uint32_t tmp0 = (z2 + z3) << CONST_BITS;
+    const uint32_t tmp1 = (z2 - z3) << CONST_BITS;
+    const uint32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    const uint32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+
+    uint32_t t0 = x[7], t1 = x[5], t2 = x[3], t3 = x[1];
+    z1 = t0 + t3;
+    z2 = t1 + t2;
+    z3 = t0 + t2;
+    uint32_t z4 = t1 + t3;
+    const uint32_t z5 = (z3 + z4) * FIX_1_175875602;
+    t0 *= FIX_0_298631336;
+    t1 *= FIX_2_053119869;
+    t2 *= FIX_3_072711026;
+    t3 *= FIX_1_501321110;
+    z1 *= 0u - FIX_0_899976223;
+    z2 *= 0u - FIX_2_562915447;
+    z3 = z3 * (0u - FIX_1_961570560) + z5;
+    z4 = z4 * (0u - FIX_0_390180644) + z5;
+    t0 += z1 + z3;
+    t1 += z2 + z4;
+    t2 += z2 + z3;
+    t3 += z1 + z4;
+
+    out[0] = descale(tmp10 + t3, N);
+    out[1] = descale(tmp11 + t2, N);
+    out[2] = descale(tmp12 + t1, N);
+    out[3] = descale(tmp13 + t0, N);
+    out[4] = descale(tmp13 - t0, N);
+    out[5] = descale(tmp12 - t1, N);
+    out[6] = descale(tmp11 - t2, N);
+    out[7] = descale(tmp10 - t3, N);
+}
+
+__device__ __forceinline__ int32_t normalize_rgb(int32_t x) {
+    return x < 0 ? 0 : min(x >> COLOR_SHIFT, 255);
+}
+
+// amps  (3, W, B, 64) int16    seg (W,) uint8 (nonzero = I-frame)
+// carry (3, B, 64) int16       quants (2, 64) int16 (luma, chroma)
+// frames: raster (W, 8*bh, 8*bw) uint32, or blocked
+//         (W, 8[outcol], bh/k, 8[row], k*bw) uint32 with k = rows_per_step
+// new_carry (3, B, 64) int16
+__global__ void __launch_bounds__(TILE * LANES)
+decode_window_kernel(const int16_t* __restrict__ amps,
+                     const uint8_t* __restrict__ seg,
+                     const int16_t* __restrict__ carry,
+                     const int16_t* __restrict__ quants,
+                     uint32_t* __restrict__ frames,
+                     int16_t* __restrict__ new_carry,
+                     int w_frames, int blocks_h, int blocks_w,
+                     int rows_per_step, int raster) {
+    __shared__ uint32_t s_in[3][TILE * IN_STRIDE];
+    __shared__ int32_t s_ws[3][TILE * WS_STRIDE];
+    __shared__ int16_t s_q[2][64];
+    __shared__ uint8_t s_seg[MAX_W];
+
+    const int nb = blocks_h * blocks_w;
+    const int x = threadIdx.x;
+    const int l = threadIdx.y;
+    const int tid = l * TILE + x;
+    const int tile0 = blockIdx.x * TILE;
+    const int b = tile0 + x;
+    const bool valid = b < nb;
+
+    if (tid < 128) s_q[tid >> 6][tid & 63] = quants[tid];
+    for (int f = tid; f < w_frames; f += TILE * LANES) s_seg[f] = seg[f];
+
+    // Column l of each plane's state: st[p][r] = coefficient (r, l).
+    int16_t st[3][8];
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+            st[p][r] = valid ? carry[(static_cast<size_t>(p) * nb + b) * 64 + r * 8 + l] : 0;
+
+    // Cooperative load: thread tid moves row (tid & 7) of image block
+    // (tid >> 3) of the tile, 16 bytes, for each plane.
+    const int ld_blk = tid >> 3;
+    const int ld_row = tid & 7;
+    const bool ld_valid = tile0 + ld_blk < nb;
+
+    const int by = b / blocks_w;
+    const int bx = b - by * blocks_w;
+    const int height = blocks_h * 8;
+    const int width = blocks_w * 8;
+    const int k = rows_per_step;
+    const int groups = blocks_h / k;
+    const int bwe = k * blocks_w;
+    const int grp = by / k;
+    const int col = (by - grp * k) * blocks_w + bx;
+
+    for (int f = 0; f < w_frames; ++f) {
+        if (ld_valid) {
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+                const size_t off =
+                    ((static_cast<size_t>(p) * w_frames + f) * nb + tile0 + ld_blk) * 64 + ld_row * 8;
+                const uint4 v = *reinterpret_cast<const uint4*>(amps + off);
+                uint32_t* d = &s_in[p][ld_blk * IN_STRIDE + ld_row * 4];
+                d[0] = v.x;
+                d[1] = v.y;
+                d[2] = v.z;
+                d[3] = v.w;
+            }
+        }
+        __syncthreads();
+
+        const bool is_i = s_seg[f] != 0;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            const int16_t* in = reinterpret_cast<const int16_t*>(&s_in[p][x * IN_STRIDE]);
+            const int16_t* q = s_q[p == 0 ? 0 : 1];
+            uint32_t col_in[8];
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+                const int16_t delta = static_cast<int16_t>(in[r * 8 + l] * q[r * 8 + l]);
+                st[p][r] = is_i ? delta : static_cast<int16_t>(st[p][r] + delta);
+                col_in[r] = static_cast<uint32_t>(static_cast<int32_t>(st[p][r]));
+            }
+            int32_t ws[8];
+            butterfly<CONST_BITS - PASS1_BITS>(col_in, ws);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) s_ws[p][x * WS_STRIDE + i * 8 + l] = ws[i];
+        }
+        __syncthreads();
+
+        // Row l of every plane: pix[p][j] = sample (l, j).
+        int32_t pix[3][8];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            uint32_t row_in[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+                row_in[c] = static_cast<uint32_t>(s_ws[p][x * WS_STRIDE + l * 8 + c]);
+            butterfly<CONST_BITS + PASS1_BITS + 3>(row_in, pix[p]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) pix[p][j] = min(max(pix[p][j], 0), 255);
+        }
+        if (valid) {
+            uint32_t px[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int32_t yy = pix[0][j] << COLOR_SHIFT;
+                const int32_t cb = pix[1][j] - 128;
+                const int32_t cr = pix[2][j] - 128;
+                const int32_t r = normalize_rgb(yy + C_CR_R * cr);
+                const int32_t g = normalize_rgb(yy - C_CB_G * cb - C_CR_G * cr);
+                const int32_t bl = normalize_rgb(yy + C_CB_B * cb);
+                px[j] = static_cast<uint32_t>(bl | (g << 8) | (r << 16));
+            }
+            if (raster) {
+                uint4* dst = reinterpret_cast<uint4*>(
+                    frames + (static_cast<size_t>(f) * height + by * 8 + l) * width + bx * 8);
+                dst[0] = make_uint4(px[0], px[1], px[2], px[3]);
+                dst[1] = make_uint4(px[4], px[5], px[6], px[7]);
+            } else {
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                    frames[(((static_cast<size_t>(f) * 8 + j) * groups + grp) * 8 + l) * bwe + col] = px[j];
+            }
+        }
+    }
+
+    if (valid) {
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+                new_carry[(static_cast<size_t>(p) * nb + b) * 64 + r * 8 + l] = st[p][r];
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+int mj423_max_window() { return MAX_W; }
+
+// Launches the kernel on `stream` (a cudaStream_t) of device `device` and
+// returns cudaGetLastError() as an int: 0 when the launch was accepted.
+// The calling thread's current device is restored before returning.
+// Pointers must be device pointers; amps and frames 16-byte aligned.
+int mj423_decode_window(const void* amps, const void* seg, const void* carry,
+                        const void* quants, void* frames, void* new_carry,
+                        int w_frames, int blocks_h, int blocks_w,
+                        int rows_per_step, int raster, int device,
+                        void* stream) {
+    int prev = 0;
+    cudaError_t err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int nb = blocks_h * blocks_w;
+    const dim3 block(TILE, LANES);
+    const dim3 grid((nb + TILE - 1) / TILE);
+    decode_window_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int16_t*>(amps), static_cast<const uint8_t*>(seg),
+        static_cast<const int16_t*>(carry), static_cast<const int16_t*>(quants),
+        static_cast<uint32_t*>(frames), static_cast<int16_t*>(new_carry),
+        w_frames, blocks_h, blocks_w, rows_per_step, raster);
+    err = cudaGetLastError();
+    if (prev != device) {
+        const cudaError_t back = cudaSetDevice(prev);
+        if (err == cudaSuccess) err = back;
+    }
+    return static_cast<int>(err);
+}
+
+const char* mj423_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

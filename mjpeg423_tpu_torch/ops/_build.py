@@ -1,0 +1,127 @@
+"""Build and load the port's CUDA kernels (nvcc by hand, bound with ctypes).
+
+The sources under ``csrc/`` are compiled at first use, on the machine that
+runs them, into ``_build/libmj423_cuda.so`` for sm_90a.  The library has a
+plain C interface, so nvcc never parses PyTorch's headers and a build takes
+seconds.  The stamp beside it holds a hash of the sources and of
+``nvcc --version``; a build goes to a pid-named temp file that
+``os.replace`` moves into place, so concurrent builds never load a torn
+file (the pattern of mjpeg423_tpu/native/centropy.py).
+
+A missing nvcc or a failed build raises with the compiler's output.  There
+is no fallback: a CUDA tensor runs the kernel or fails.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "_build"
+LIB_NAME = "libmj423_cuda.so"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's default prefix."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+        "/usr/local/cuda/bin): the CUDA kernels of mjpeg423_tpu_torch are "
+        "built from source at first use and need the CUDA toolkit"
+    )
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _stamp(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    ver = subprocess.run(
+        [nvcc, "--version"], check=True, capture_output=True, text=True
+    ).stdout
+    h.update(ver.encode())
+    h.update(ARCH.encode())
+    return h.hexdigest()
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu into _build/libmj423_cuda.so unless the stamp
+    matches; returns the library's path.  ptxas's register and spill report
+    is kept in _build/ptxas.log."""
+    nvcc = nvcc_path()
+    so = BUILD / LIB_NAME
+    stamp = BUILD / "stamp"
+    want = _stamp(nvcc)
+    if so.exists() and stamp.exists() and stamp.read_text() == want:
+        return so
+    BUILD.mkdir(exist_ok=True)
+    tmp = BUILD / f"{LIB_NAME}.tmp.{os.getpid()}"
+    cmd = [
+        nvcc, ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+        "-Xcompiler", "-fPIC", "-o", str(tmp),
+        *[str(s) for s in _sources() if s.suffix == ".cu"],
+    ]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stdout}{res.stderr}"
+            )
+        (BUILD / "ptxas.log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, so)
+    finally:
+        tmp.unlink(missing_ok=True)
+    stamp.write_text(want)
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            ptr = ctypes.c_void_p
+            i32 = ctypes.c_int
+            lib.mj423_decode_window.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr,
+                i32, i32, i32, i32, i32, i32, ptr,
+            ]
+            lib.mj423_decode_window.restype = i32
+            lib.mj423_error_string.argtypes = [i32]
+            lib.mj423_error_string.restype = ctypes.c_char_p
+            lib.mj423_max_window.argtypes = []
+            lib.mj423_max_window.restype = i32
+            _LIB = lib
+        return _LIB
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = lib.mj423_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

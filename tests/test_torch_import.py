@@ -1,0 +1,70 @@
+"""The port never reaches jax.
+
+tests/conftest.py imports jax into every test process, so each check runs
+in a fresh interpreter where ``sys.modules["jax"] = None`` makes any import
+of jax (or of a module that needs it) raise.
+"""
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+PRELUDE = """
+import sys
+sys.modules["jax"] = None
+import numpy as np
+"""
+
+SCRIPTS = {
+    "import": """
+        import mjpeg423_tpu_torch
+        import mjpeg423_tpu_torch.ops.transform
+        import mjpeg423_tpu_torch.ops.transform_fused
+        import mjpeg423_tpu_torch.ops._build
+        import mjpeg423_tpu_torch.codec
+        import mjpeg423_tpu_torch.runtime
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "triton")
+               and sys.modules[m] is not None]
+        assert not bad, bad
+        from mjpeg423_tpu_torch.ops import _build
+        assert _build._LIB is None  # nothing is built at import
+    """,
+    "decode_array": """
+        from mjpeg423_tpu.codec.decoder import decode_stream_array
+        from mjpeg423_tpu.utils.config import DecodeConfig
+        from mjpeg423_tpu_torch.codec import encode_frames
+        from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
+        rng = np.random.default_rng(5)
+        base = rng.integers(0, 256, (16, 24, 3))
+        frames = []
+        for t in range(5):
+            f = base.copy()
+            f[t:t + 8, 2 * t:2 * t + 8] = 255
+            frames.append(f.astype(np.uint8))
+        data = encode_frames(frames, max_i_interval=3)
+        pipe = DecodePipeline(DecodeConfig(frames_per_batch=2), device="cpu",
+                              profiler=Profiler())
+        pipe.warmup(24, 16)
+        got = pipe.decode_array(data)
+        assert np.array_equal(got, decode_stream_array(data))
+        res, rec = pipe.decode_resilient_array(data)
+        assert np.array_equal(res, got) and rec.skipped == []
+    """,
+}
+
+
+@pytest.mark.parametrize("name", list(SCRIPTS))
+def test_port_runs_with_jax_blocked(name):
+    code = PRELUDE + textwrap.dedent(SCRIPTS[name]) + "\nprint('OK')\n"
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert res.returncode == 0 and res.stdout.strip().endswith("OK"), (
+        res.stdout + res.stderr
+    )

@@ -1,0 +1,312 @@
+"""The port's DecodePipeline (mjpeg423_tpu_torch/runtime/pipeline.py)
+against the JAX DecodePipeline on its XLA path (use_pallas=False) and the
+NumPy oracle decoder, on the same container bytes.
+
+Byte-equal throughout (tolerance 0).  The int16-wrap stream is crafted as
+in tests/test_overflow_adversarial.py; that file needs the compiled C
+oracle and skips without it, so this is where wraps through the whole
+pipeline are checked on every run.  The tests marked ``cuda`` run the
+pipeline on the card and skip without one.  Nothing here imports jax at
+module level, so the card tests also run where jax is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_pipeline.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from mjpeg423_tpu.codec import decoder, encoder
+from mjpeg423_tpu.core import format as fmt
+from mjpeg423_tpu.core.format import Frame, serialize_file
+from mjpeg423_tpu.ops import entropy_ref
+from mjpeg423_tpu.utils.config import DecodeConfig
+from mjpeg423_tpu_torch.ops import transform_fused as tf
+from mjpeg423_tpu_torch.runtime import DecodePipeline
+
+H, WD = 32, 48
+
+
+def _frames(rng, n, h, w):
+    """A fixed noise texture with a bright square moving over it: the
+    encoder codes most frames as P-frames (I every max_i_interval)."""
+    base = rng.integers(0, 256, (h, w, 3))
+    out = []
+    for t in range(n):
+        f = base.copy()
+        y0, x0 = (2 * t) % (h - 8), (3 * t) % (w - 8)
+        f[y0:y0 + 8, x0:x0 + 8] = 255
+        out.append(f.astype(np.uint8))
+    return out
+
+
+def _craft_wrap_stream(rng, num_frames=7, h=16, w=16):
+    """Near-max VLI amplitudes in every P-frame, so the int16 coefficient
+    state wraps again and again; I-frames at 0 and 4."""
+    nb = (h // 8) * (w // 8)
+    frames = []
+    for fi in range(num_frames):
+        is_p = fi not in (0, 4)
+        planes = []
+        for _ in range(3):
+            amps = rng.integers(-2047, 2048, size=(nb, 64)).astype(np.int16)
+            if not is_p:
+                # I-frames carry DC as block-to-block differences.
+                d = amps.copy()
+                d[1:, 0] = (amps[1:, 0] - amps[:-1, 0]).astype(np.int16)
+                amps = d
+            planes.append(entropy_ref.encode_plane(amps))
+        frames.append(Frame(1 if is_p else 0, *planes))
+    return serialize_file(w, h, frames)
+
+
+@pytest.fixture(scope="module")
+def stream():
+    rng = np.random.default_rng(29)
+    data = encoder.encode_frames(_frames(rng, 11, H, WD), max_i_interval=4)
+    assert fmt.index_frames(data).is_iframe.sum() == 3  # I at 0, 4, 8
+    return data, decoder.decode_stream_array(data)
+
+
+@pytest.fixture(scope="module")
+def wrap_stream():
+    data = _craft_wrap_stream(np.random.default_rng(423))
+    return data, decoder.decode_stream_array(data)
+
+
+@pytest.fixture(scope="module")
+def jax_runtime():
+    """mjpeg423_tpu's pipeline module with the jax step (needs jax)."""
+    pytest.importorskip("jax")
+    from mjpeg423_tpu.runtime import pipeline
+
+    return pipeline
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _jax_decode(jax_runtime, data, fpb, **kw):
+    pipe = jax_runtime.DecodePipeline(
+        DecodeConfig(frames_per_batch=fpb, use_pallas=False)
+    )
+    return pipe.decode_array(data, **kw)
+
+
+@pytest.mark.parametrize("fpb", [2, 3, 20])
+def test_decode_array_matches_jax_and_oracle(jax_runtime, stream, fpb):
+    data, want = stream
+    got = DecodePipeline(DecodeConfig(frames_per_batch=fpb), device="cpu") \
+        .decode_array(data)
+    assert got.dtype == np.uint32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, _jax_decode(jax_runtime, data, fpb))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("start,end", [(4, 10), (8, None), (0, 5)])
+def test_start_and_end_frame(jax_runtime, stream, start, end):
+    data, want = stream
+    got = DecodePipeline(DecodeConfig(frames_per_batch=3), device="cpu") \
+        .decode_array(data, start_frame=start, end_frame=end)
+    jax_out = _jax_decode(jax_runtime, data, 3, start_frame=start,
+                          end_frame=end)
+    np.testing.assert_array_equal(got, jax_out)
+    np.testing.assert_array_equal(got, want[start:end])
+
+
+def test_start_frame_must_be_an_iframe(stream):
+    data, _ = stream
+    with pytest.raises(ValueError, match="not an I-frame"):
+        DecodePipeline(device="cpu").decode_array(data, start_frame=1)
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        dict(raster_on_device=True),
+        dict(latency_mode=True, frames_per_batch=2),
+        dict(num_output_buffers=1, prefetch_batches=1, frames_per_batch=2),
+        dict(use_native_entropy=False, frames_per_batch=4),
+        dict(spec_segments=2, frames_per_batch=4),
+    ],
+    ids=["raster-on-device", "latency", "ring-1", "python-parse", "spec-parse"],
+)
+def test_config_variants_decode_identically(stream, cfg):
+    data, want = stream
+    got = DecodePipeline(DecodeConfig(**cfg), device="cpu").decode_array(data)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int16_wrap_stream(jax_runtime, wrap_stream):
+    data, want = wrap_stream
+    got = DecodePipeline(DecodeConfig(frames_per_batch=3), device="cpu") \
+        .decode_array(data)
+    np.testing.assert_array_equal(got, _jax_decode(jax_runtime, data, 3))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_device_resident_windows_are_tensors(stream):
+    data, want = stream
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4), device="cpu")
+    wins = list(pipe.decode(data, device_resident=True))
+    assert [(w.start_frame, w.count) for w in wins] == [(0, 4), (4, 4), (8, 3)]
+    for w in wins:
+        assert isinstance(w.frames, torch.Tensor)
+        assert tuple(w.frames.shape) == (4, 8, H // 8, 8, WD // 8)
+        host = pipe._to_raster(w.frames.numpy(), H // 8, WD // 8)
+        np.testing.assert_array_equal(
+            host[:w.count], want[w.start_frame:w.start_frame + w.count]
+        )
+
+
+def test_stop_ends_the_stream_after_a_window(stream):
+    data, want = stream
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=2), device="cpu")
+    wins = list(pipe.decode(data, stop=lambda: True))
+    assert len(wins) == 1
+    np.testing.assert_array_equal(wins[0].frames, want[:2])
+    gen = pipe.decode(data)  # an abandoned generator releases its parse pool
+    next(gen)
+    gen.close()
+
+
+def test_carry_from_a_jax_window_continues_in_the_port(jax_runtime, stream):
+    """JAX decodes the first window; carry_from_jax hands its coefficient
+    state to the port, which decodes the rest identically."""
+    data, want = stream
+    index = fmt.index_frames(data)
+    bh, bw = index.header.blocks_h, index.header.blocks_w
+    w = 3
+    jpipe = jax_runtime.DecodePipeline(
+        DecodeConfig(frames_per_batch=w, use_pallas=False)
+    )
+    # Start the port's half mid-GOP, so the handed-over state matters.
+    assert not index.is_iframe[w]
+    first, jcarry = jpipe._get_step(bh, bw)(
+        jpipe.parse_window(data, index, 0, w), index.is_iframe[:w],
+        np.zeros((3, bh * bw, 64), np.int16),
+    )
+    port = DecodePipeline(DecodeConfig(frames_per_batch=w), device="cpu")
+    step = port._get_step(bh, bw)
+    carry = tf.carry_from_jax(jcarry, "cpu")
+    outs = [np.asarray(first)]
+    for s in range(w, index.num_frames, w):
+        c = min(w, index.num_frames - s)
+        amps = port._put_window(port.parse_window(data, index, s, c), c, w,
+                                bh * bw)
+        seg = np.zeros(w, dtype=bool)
+        seg[:c] = index.is_iframe[s:s + c]
+        frames, carry = step(amps, port._put(seg), carry)
+        outs.append(port._to_raster(frames.numpy(), bh, bw)[:c])
+    np.testing.assert_array_equal(np.concatenate(outs), want)
+
+
+def _corrupt_plane(data, index, frame, parser):
+    """Overwrite one plane bitstream with a pattern the parser rejects."""
+    o = int(index.plane_off[0, frame])
+    n = int(index.plane_len[0, frame])
+    for pattern in (b"\xff", b"\xf1", b"\x9f\xff", b"\x7f\xf8"):
+        trial = bytearray(data)
+        trial[o:o + n] = (pattern * (n // len(pattern) + 1))[:n]
+        trial = bytes(trial)
+        try:
+            parser.parse_window(trial, fmt.index_frames(trial), frame, 1)
+        except ValueError:
+            return trial
+    raise AssertionError("no corruption pattern tripped the parser")
+
+
+def test_decode_resilient_matches_jax(jax_runtime, stream):
+    data, _ = stream
+    port = DecodePipeline(DecodeConfig(frames_per_batch=3), device="cpu")
+    bad = _corrupt_plane(data, fmt.index_frames(data), 6, port)
+    got, rec = port.decode_resilient_array(bad)
+    jpipe = jax_runtime.DecodePipeline(
+        DecodeConfig(frames_per_batch=3, use_pallas=False)
+    )
+    want, jrec = jpipe.decode_resilient_array(bad)
+    np.testing.assert_array_equal(got, want)
+    assert rec.skipped == jrec.skipped == [(6, 8)]
+    assert rec.resyncs == jrec.resyncs
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: DecodePipeline(DecodeConfig(coef_major=True), device="cpu"),
+        lambda: DecodePipeline(DecodeConfig(pack_i8=True), device="cpu"),
+        lambda: DecodePipeline(mesh=object(), device="cpu"),
+    ],
+    ids=["coef-major", "pack-i8", "mesh"],
+)
+def test_unported_configurations_refuse(make):
+    with pytest.raises(NotImplementedError):
+        make()
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda p, d: p.decode_array(d, scale=2),
+        lambda p, d: p.decode_streams([d]),
+        lambda p, d: list(p.decode_iframes(d)),
+        lambda p, d: p.decode_iframes_array(d),
+        lambda p, d: p.decode_streams_arrays([d]),
+    ],
+    ids=["scale", "decode_streams", "decode_iframes", "decode_iframes_array",
+         "decode_streams_arrays"],
+)
+def test_unported_entry_points_refuse(stream, call):
+    data, _ = stream
+    with pytest.raises(NotImplementedError):
+        call(DecodePipeline(device="cpu"), data)
+
+
+@pytest.mark.parametrize(
+    "kw,exc",
+    [
+        (dict(device="meta"), ValueError),
+        (dict(device="cpu", config=DecodeConfig(use_pallas=True)), ValueError),
+    ],
+    ids=["meta-device", "kernel-on-cpu"],
+)
+def test_bad_device_settings_refuse(kw, exc):
+    with pytest.raises(exc):
+        DecodePipeline(**kw)
+
+
+def test_cuda_default_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DecodePipeline()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fpb", [2, 20])
+def test_cuda_pipeline_runs_the_kernel(cuda, stream, wrap_stream, fpb):
+    for data, want in (stream, wrap_stream):
+        pipe = DecodePipeline(DecodeConfig(frames_per_batch=fpb), device=cuda)
+        nf = want.shape[0]
+        launches = tf.LAUNCHES
+        got = pipe.decode_array(data)
+        assert tf.LAUNCHES - launches == -(-nf // fpb)
+        np.testing.assert_array_equal(got, want)
+        cpu = DecodePipeline(DecodeConfig(frames_per_batch=fpb), device="cpu")
+        np.testing.assert_array_equal(got, cpu.decode_array(data))
+
+
+@pytest.mark.cuda
+def test_cuda_device_resident_and_warmup(cuda, stream):
+    data, want = stream
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4), device=cuda)
+    pipe.warmup(WD, H)
+    for w in pipe.decode(data, device_resident=True):
+        assert w.frames.device.type == "cuda"
+        host = pipe._to_raster(w.frames.cpu().numpy(), H // 8, WD // 8)
+        np.testing.assert_array_equal(
+            host[:w.count], want[w.start_frame:w.start_frame + w.count]
+        )
