@@ -17,6 +17,18 @@ Phases, each reported on its own lines:
      the source frames, with one kernel launch per window;
   5. timings with CUDA events (median of repeated warm runs) and the
      end-to-end decode rate.
+The encode path has its own phases beside these:
+  3b. the fused encode-window kernel (FDCT + quantize) against its plain
+     PyTorch version on the card at 640x480 and 1920x1088, W=16, random
+     samples with all-0, all-255, stripe and checkerboard blocks:
+     quantized planes must be byte-equal;
+  4b. encode_frames_device(device="cuda") on phase 4's source clips, with
+     the producer overlap on and off and the int8 fetch on and off: every
+     container byte-identical to the host encoder's (phase 4's), one kernel
+     launch per window, and the card's container decoding on the card to
+     phase 4's frames;
+  5b. the encode kernel against its plain version (CUDA events) and the
+     end-to-end encode rate with the default config, with its probes.
 
 The codec is integer arithmetic, so every comparison has tolerance 0.  The
 second-to-last line is a JSON object describing each kernel; the last is
@@ -43,6 +55,10 @@ GEOMS = {"640x480": (480, 640), "1920x1088": (1088, 1920)}
 KERNEL_SOURCE = "mjpeg423_tpu_torch/csrc/decode_window.cu"
 REPLACES = "mjpeg423_tpu/ops/transform_fused.py:193"
 REPS = 20
+ENC_W = 16  # EncodeConfig.frames_per_batch
+ENC_SOURCE = "mjpeg423_tpu_torch/csrc/encode_window.cu"
+ENC_REPLACES = "mjpeg423_tpu/ops/encode_fused.py:144"
+ENC_RUNS = 5
 # The synthetic clips decode at ~33.5 dB against their source (measured at
 # 640x480 and 240x136 with the plain CPU path); garbage frames sit far below.
 MIN_PSNR_DB = 30.0
@@ -67,6 +83,17 @@ def synthetic_clip(rng, num_frames: int, h: int, w: int) -> list[np.ndarray]:
         f[: h // 16, : w // 16] = 0
         frames.append(np.clip(f, 0, 255).astype(np.uint8))
     return frames
+
+
+def extreme_blocks() -> np.ndarray:
+    """(6, 64) uint8: all 0, all 255, column and row stripes and both
+    checkerboards, the FDCT's extreme intermediate ranges."""
+    r, c = np.mgrid[0:8, 0:8]
+    return np.stack([
+        np.zeros(64), np.full(64, 255), np.tile([0, 255] * 4, 8),
+        np.repeat([255, 0] * 4, 8), 255 * ((r + c) % 2).ravel(),
+        255 * ((r + c + 1) % 2).ravel(),
+    ]).astype(np.uint8)
 
 
 def as_u64(t: torch.Tensor) -> torch.Tensor:
@@ -97,8 +124,10 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
 
-    from mjpeg423_tpu_torch.codec import encode_frames, index_frames
-    from mjpeg423_tpu_torch.ops import _build, transform_fused as tf
+    from mjpeg423_tpu_torch.codec import (
+        EncodeConfig, encode_frames, encode_frames_device, index_frames,
+    )
+    from mjpeg423_tpu_torch.ops import _build, encode_fused as ef, transform_fused as tf
     from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
 
     failures: list[str] = []
@@ -174,8 +203,33 @@ def main() -> int:
                         failures.append(f"kernel-vs-plain {gname} {kind} "
                                         f"raster={raster} k={k}")
 
+    # ---- 3b. encode kernel vs plain version on the card -------------------
+    enc_inputs = {}
+    enc_err = 0
+    for gname, (h, w) in GEOMS.items():
+        bh, bw = h // 8, w // 8
+        s_np = rng.integers(0, 256, size=(3, ENC_W, bh * bw, 64), dtype=np.uint8)
+        s_np[:, 0, :6] = extreme_blocks()
+        s_np[:, -1, -6:] = 255 - extreme_blocks()
+        s = torch.from_numpy(s_np).to(dev)
+        enc_inputs[gname] = (s, bh, bw)
+        qk = ef.encode_window_fused(s, blocks_h=bh, blocks_w=bw)
+        torch.cuda.synchronize()
+        qp = ef.encode_window_fused_ref(s, blocks_h=bh, blocks_w=bw)
+        torch.cuda.synchronize()
+        same = qk.shape == qp.shape and qk.dtype == qp.dtype == torch.int16 \
+            and torch.equal(qk, qp)
+        err = int((qk.int() - qp.int()).abs().max()) if qk.shape == qp.shape else -1
+        enc_err = max(enc_err, err)
+        print(f"[enc-kernel-vs-plain] {gname} W={ENC_W} {tuple(qk.shape)}: "
+              f"quantized planes byte-equal={same} max_abs_err={err} "
+              f"{'PASS' if same else 'FAIL'}", flush=True)
+        if not same:
+            failures.append(f"enc-kernel-vs-plain {gname}")
+
     # ---- 4. main path ----------------------------------------------------
     clips = {}
+    gops = {}
     plain = DecodePipeline(device="cpu")
     for gname, nf, gop in (("1920x1088", 30, 12), ("640x480", 48, 24)):
         h, w = GEOMS[gname]
@@ -187,6 +241,7 @@ def main() -> int:
         want = plain.decode_array(mpg)
         t_ref = time.perf_counter() - t0
         clips[gname] = (mpg, want, nf, src)
+        gops[gname] = gop
         types = "".join("I" if i else "P" for i in index_frames(mpg).is_iframe)
         print(f"[main] clip {gname}: {nf} frames {types}, {len(mpg)} bytes; "
               f"host encode {t_enc:.2f} s, plain PyTorch decode on the CPU "
@@ -228,6 +283,43 @@ def main() -> int:
         if not ok:
             failures.append(f"main path {gname}")
 
+    # ---- 4b. encode path ---------------------------------------------------
+    variants = [(ov, i8) for ov in (True, False) for i8 in (False, True)]
+    ef.LAUNCHES = 0
+    card_mpg = {}
+    for gname, (mpg, _want, nf, src) in clips.items():
+        for ov, i8 in variants:
+            t0 = time.perf_counter()
+            got = encode_frames_device(
+                src, max_i_interval=gops[gname], device="cuda",
+                config=EncodeConfig(overlap_device=ov, fetch_i8=i8),
+            )
+            dt = time.perf_counter() - t0
+            same = got == mpg
+            card_mpg.setdefault(gname, got)
+            print(f"[enc-main] encode_frames_device {gname} cuda "
+                  f"overlap_device={ov} fetch_i8={i8}: {len(got)} bytes in "
+                  f"{dt:.3f} s, byte-identical to the host encoder={same} "
+                  f"{'PASS' if same else 'FAIL'}", flush=True)
+            if not same:
+                failures.append(f"encode {gname} overlap={ov} i8={i8}")
+    enc_launches = ef.LAUNCHES
+    enc_windows = len(variants) * sum(
+        -(-nf // ENC_W) for _m, _w, nf, _s in clips.values())
+    ok = enc_launches == enc_windows
+    print(f"[enc-main] kernel launches {enc_launches}, windows encoded "
+          f"{enc_windows} {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append("encode path launches")
+    for gname, got_mpg in card_mpg.items():
+        back = pipe.decode_array(got_mpg)
+        same = np.array_equal(back, got_all[gname])
+        print(f"[enc-main] card container {gname} decoded on cuda: "
+              f"equal to phase 4's frames={same} {'PASS' if same else 'FAIL'}",
+              flush=True)
+        if not same:
+            failures.append(f"encode round trip {gname}")
+
     # ---- 5. timings ------------------------------------------------------
     timing = {}
     for gname, (amps, seg, carry, bh, bw) in inputs.items():
@@ -265,6 +357,36 @@ def main() -> int:
             print(f"[e2e] {gname} probe {line}")
         sys.stdout.flush()
 
+    # ---- 5b. encode timings ------------------------------------------------
+    enc_timing = {}
+    for gname, (s, bh, bw) in enc_inputs.items():
+        k_ms = time_cuda(lambda: ef.encode_window_fused(s, blocks_h=bh, blocks_w=bw))
+        p_ms = time_cuda(
+            lambda: ef.encode_window_fused_ref(s, blocks_h=bh, blocks_w=bw), reps=10)
+        enc_timing[gname] = (k_ms, p_ms)
+        print(f"[enc-time] {gname} W={ENC_W}: kernel {k_ms:.4f} ms/window "
+              f"({ENC_W / k_ms * 1e3:.1f} frames/s); plain PyTorch "
+              f"{p_ms:.4f} ms/window; kernel/plain speedup {p_ms / k_ms:.2f}x",
+              flush=True)
+
+    enc_e2e = {}
+    for gname, (_mpg, _want, nf, src) in clips.items():
+        encode_frames_device(src, max_i_interval=gops[gname])
+        prof = Profiler()
+        runs = []
+        for _ in range(ENC_RUNS):
+            t0 = time.perf_counter()
+            encode_frames_device(src, max_i_interval=gops[gname], profiler=prof)
+            runs.append(time.perf_counter() - t0)
+        med = statistics.median(runs)
+        enc_e2e[gname] = nf / med
+        print(f"[enc-e2e] {gname}: encode_frames_device {nf} frames, median "
+              f"of {len(runs)} {med * 1e3:.2f} ms -> {nf / med:.1f} frames/s "
+              f"(min {nf / max(runs):.1f}, max {nf / min(runs):.1f})")
+        for line in prof.format_report().splitlines():
+            print(f"[enc-e2e] {gname} probe {line}")
+        sys.stdout.flush()
+
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
@@ -283,6 +405,19 @@ def main() -> int:
         "ms_640x480": v_ms,
         "plain_ms_640x480": vp_ms,
         "e2e_frames_per_s": e2e,
+    }, {
+        "name": "encode_window_fused",
+        "route": "cuda",
+        "source": ENC_SOURCE,
+        "replaces": ENC_REPLACES,
+        "launches": enc_launches,
+        "max_abs_err": enc_err,
+        "ms": enc_timing["1920x1088"][0],
+        "plain_ms": enc_timing["1920x1088"][1],
+        "shape": f"W={ENC_W} 1920x1088",
+        "ms_640x480": enc_timing["640x480"][0],
+        "plain_ms_640x480": enc_timing["640x480"][1],
+        "e2e_frames_per_s": enc_e2e,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

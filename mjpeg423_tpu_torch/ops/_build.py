@@ -3,7 +3,8 @@
 The sources under ``csrc/`` are compiled at first use, on the machine that
 runs them, into ``_build/libmj423_cuda.so`` for sm_90a.  The library has a
 plain C interface, so nvcc never parses PyTorch's headers and a build takes
-seconds.  The stamp beside it holds a hash of the sources and of
+seconds: one nvcc per source, all started together, then one link.  The
+stamp beside it holds a hash of the sources and of
 ``nvcc --version``; a build goes to a pid-named temp file that
 ``os.replace`` moves into place, so concurrent builds never load a torn
 file (the pattern of mjpeg423_tpu/native/centropy.py).
@@ -78,23 +79,40 @@ def build() -> pathlib.Path:
     if so.exists() and stamp.exists() and stamp.read_text() == want:
         return so
     BUILD.mkdir(exist_ok=True)
-    tmp = BUILD / f"{LIB_NAME}.tmp.{os.getpid()}"
-    cmd = [
-        nvcc, ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-        "-Xcompiler", "-fPIC", "-o", str(tmp),
-        *[str(s) for s in _sources() if s.suffix == ".cu"],
+    pid = os.getpid()
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD / f"{s.stem}.{pid}.o" for s in srcs]
+    tmp = BUILD / f"{LIB_NAME}.tmp.{pid}"
+    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    cmds = [
+        [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", str(o), str(s)]
+        for s, o in zip(srcs, objs)
     ]
+    link = [nvcc, ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [
+            subprocess.Popen(c, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for c in cmds
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for c, p, log in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {p.returncode}): {' '.join(c)}\n{log}"
+                )
+        res = subprocess.run(link, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {res.returncode}): {' '.join(cmd)}\n"
+                f"nvcc link failed (exit {res.returncode}): {' '.join(link)}\n"
                 f"{res.stdout}{res.stderr}"
             )
-        (BUILD / "ptxas.log").write_text(res.stdout + res.stderr)
+        (BUILD / "ptxas.log").write_text("".join(logs))
         os.replace(tmp, so)
     finally:
         tmp.unlink(missing_ok=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
     stamp.write_text(want)
     return so
 
@@ -112,6 +130,10 @@ def load() -> ctypes.CDLL:
                 i32, i32, i32, i32, i32, i32, ptr,
             ]
             lib.mj423_decode_window.restype = i32
+            lib.mj423_encode_window.argtypes = [
+                ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+            ]
+            lib.mj423_encode_window.restype = i32
             lib.mj423_error_string.argtypes = [i32]
             lib.mj423_error_string.restype = ctypes.c_char_p
             lib.mj423_max_window.argtypes = []

@@ -1,0 +1,114 @@
+"""Fused encode window: sample blocks -> quantized planes in one pass.
+
+The counterpart of mjpeg423_tpu/ops/encode_fused.py::encode_window_fused,
+with its signature and layouts.  A CUDA tensor launches the hand-written
+kernel in csrc/encode_window.cu; a CPU tensor runs the plain PyTorch
+version, encode_window_fused_ref, built from ops/encode.py.  Nothing falls
+back from one to the other: any other device raises, and so does a failed
+build or launch.
+
+Every 8x8 block is independent (the output is the ABSOLUTE quantized
+planes; the host packer forms the I-DC chain and the P deltas), so there is
+no carry.  rows_per_step is accepted for the JAX signature: there it only
+widens the TPU's lane tiles and never changes the output, and here it
+changes nothing at all.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import encode, transform
+from .transform_fused import _quants
+
+# Kernel launches made by encode_window_fused (the plain version is not
+# counted).  A run resets it to 0 and reads it back to show that its
+# windows went through the kernel.
+LAUNCHES = 0
+
+
+def _check_args(samples, blocks_h: int, blocks_w: int,
+                rows_per_step: int) -> int:
+    """Validate shape and dtype; returns the window length W."""
+    if samples.dim() != 4 or samples.shape[0] != 3 or samples.shape[3] != 64:
+        raise ValueError(
+            f"samples must be (3, W, B, 64), got {tuple(samples.shape)}"
+        )
+    if samples.dtype != torch.uint8:
+        raise TypeError(f"samples must be uint8, got {samples.dtype}")
+    if samples.shape[2] != blocks_h * blocks_w:
+        raise ValueError(
+            f"B={samples.shape[2]} != blocks_h*blocks_w={blocks_h}*{blocks_w}"
+        )
+    if rows_per_step < 1 or blocks_h % rows_per_step:
+        raise ValueError(
+            f"blocks_h {blocks_h} not divisible by rows_per_step {rows_per_step}"
+        )
+    return samples.shape[1]
+
+
+def encode_window_fused_ref(
+    samples: torch.Tensor,
+    *,
+    blocks_h: int,
+    blocks_w: int,
+    rows_per_step: int = 1,
+) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, on any device."""
+    w_frames = _check_args(samples, blocks_h, blocks_w, rows_per_step)
+    nb = blocks_h * blocks_w
+    yq, cq = transform.quant_tensors(samples.device)
+    planes = [
+        encode.quantize(
+            encode.fdct_blocks(samples[p].reshape(w_frames, nb, 8, 8))
+            .reshape(w_frames, nb, 64),
+            q,
+        )
+        for p, q in ((0, yq), (1, cq), (2, cq))
+    ]
+    return torch.stack(planes)
+
+
+def encode_window_fused(
+    samples: torch.Tensor,
+    *,
+    blocks_h: int,
+    blocks_w: int,
+    rows_per_step: int = 1,
+) -> torch.Tensor:
+    """Fused FDCT + quantize of a frame window.
+
+    samples: (3, W, B, 64) uint8 blocked Y/Cb/Cr sample planes (B =
+    blocks_h * blocks_w, row-major; each block 8x8 flattened).
+    Returns (3, W, B, 64) int16 ABSOLUTE quantized amplitudes (luma table
+    for plane 0, chroma for planes 1 and 2), the input of the host packer
+    (mjpeg423_tpu.codec.encoder.encode_quantized_frames).
+
+    On a CUDA device this launches the kernel (asynchronously, on the
+    current stream); on the CPU it runs encode_window_fused_ref.
+    """
+    global LAUNCHES
+    w_frames = _check_args(samples, blocks_h, blocks_w, rows_per_step)
+    dev = samples.device
+    if dev.type == "cpu":
+        return encode_window_fused_ref(
+            samples, blocks_h=blocks_h, blocks_w=blocks_w,
+            rows_per_step=rows_per_step,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"encode_window_fused runs on cpu or cuda, not {dev}")
+    from . import _build
+
+    lib = _build.load()
+    if not samples.is_contiguous():
+        raise ValueError("samples must be contiguous")
+    if samples.data_ptr() % 8:
+        raise ValueError("samples must be 8-byte aligned")
+    out = torch.empty(samples.shape, dtype=torch.int16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.mj423_encode_window(
+        samples.data_ptr(), _quants(dev).data_ptr(), out.data_ptr(),
+        w_frames, blocks_h, blocks_w, dev.index, stream,
+    )
+    _build.check(lib, code, "encode_window_fused launch")
+    LAUNCHES += 1
+    return out

@@ -39,7 +39,7 @@ from mjpeg423_tpu.runtime import pipeline as _base
 from mjpeg423_tpu.runtime.pipeline import DecodedWindow
 from mjpeg423_tpu.utils.config import DecodeConfig
 
-from ..ops import transform_fused
+from ..ops import resolve_device, transform_fused
 
 
 def _device_step_factory(blocks_h: int, blocks_w: int, raster_on_device: bool):
@@ -75,22 +75,7 @@ class DecodePipeline(_base.DecodePipeline):
                 "pack_i8=True needs the int8-input kernel, which is not "
                 "ported yet"
             )
-        dev = torch.device(device)
-        if dev.type not in ("cpu", "cuda"):
-            raise ValueError(f"device must be cpu or cuda, got {dev}")
-        if dev.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "device is cuda but torch.cuda.is_available() is false; "
-                    "pass device='cpu' to run the plain PyTorch path"
-                )
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
-        if cfg.use_pallas is not None and cfg.use_pallas != (dev.type == "cuda"):
-            raise ValueError(
-                f"use_pallas={cfg.use_pallas} contradicts device {dev}: the "
-                "port runs the kernel exactly when the device is CUDA"
-            )
+        dev = resolve_device(device, cfg.use_pallas)
         super().__init__(cfg, profiler, None, dev)
 
     def _put(self, x):

@@ -25,7 +25,10 @@ SCRIPTS = {
         import mjpeg423_tpu_torch.ops.transform
         import mjpeg423_tpu_torch.ops.transform_fused
         import mjpeg423_tpu_torch.ops._build
+        import mjpeg423_tpu_torch.ops.encode
+        import mjpeg423_tpu_torch.ops.encode_fused
         import mjpeg423_tpu_torch.codec
+        import mjpeg423_tpu_torch.codec.encoder
         import mjpeg423_tpu_torch.runtime
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "triton")
@@ -54,6 +57,20 @@ SCRIPTS = {
         assert np.array_equal(got, decode_stream_array(data))
         res, rec = pipe.decode_resilient_array(data)
         assert np.array_equal(res, got) and rec.skipped == []
+    """,
+    "encode_frames_device": """
+        from mjpeg423_tpu.utils.config import EncodeConfig
+        from mjpeg423_tpu_torch.codec import encode_frames, encode_frames_device
+        rng = np.random.default_rng(6)
+        frames = [rng.integers(0, 256, (16, 24, 3)).astype(np.uint8)
+                  for _ in range(5)]
+        want = encode_frames(frames, max_i_interval=3)
+        for overlap in (False, True):
+            cfg = EncodeConfig(frames_per_batch=2, overlap_device=overlap,
+                               fetch_i8=overlap)
+            got = encode_frames_device(frames, max_i_interval=3, config=cfg,
+                                       device="cpu")
+            assert got == want, overlap
     """,
 }
 
