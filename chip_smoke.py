@@ -17,6 +17,21 @@ Phases, each reported on its own lines:
      the source frames, with one kernel launch per window;
   5. timings with CUDA events (median of repeated warm runs) and the
      end-to-end decode rate.
+The other two input layouts of the decode window have their own phases:
+  3c. the coefficient-major kernel (row folds 1 and 2) and the int8-packed
+     kernel against their plain PyTorch versions on the card, at 640x480
+     and 1920x1088, W=20, both output layouts, realistic and full-range
+     amplitudes (for the int8 kernel: full-range int16 DC and a nonzero
+     ac[..., 0], which it must ignore), a leading P-frame on a random
+     carry: frames and carry byte-equal, and the coefficient-major blocked
+     output equal to the block-major kernel's with the same fold;
+  4c. the same main path with DecodeConfig(coef_major=True) and with
+     DecodeConfig(pack_i8=True) on phase 4's clips: byte-equal to phase 4's
+     plain CPU frames, each window through the kernel of its parse layout;
+  4d. decode_iframes_array(scale=4) and decode_streams_arrays(scale=2) on
+     the card: equal to the host downscale of phase 4's frames;
+  5c. both kernels against their plain versions (CUDA events) and the
+     end-to-end decode rate of each configuration.
 The encode path has its own phases beside these:
   3b. the fused encode-window kernel (FDCT + quantize) against its plain
      PyTorch version on the card at 640x480 and 1920x1088, W=16, random
@@ -54,6 +69,8 @@ W = 20
 GEOMS = {"640x480": (480, 640), "1920x1088": (1088, 1920)}
 KERNEL_SOURCE = "mjpeg423_tpu_torch/csrc/decode_window.cu"
 REPLACES = "mjpeg423_tpu/ops/transform_fused.py:193"
+CM_REPLACES = "mjpeg423_tpu/ops/transform_fused.py:314"
+I8_REPLACES = "mjpeg423_tpu/ops/transform_fused.py:439"
 REPS = 20
 ENC_W = 16  # EncodeConfig.frames_per_batch
 ENC_SOURCE = "mjpeg423_tpu_torch/csrc/encode_window.cu"
@@ -101,6 +118,20 @@ def as_u64(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
+def compare(fk, ck, fp, cp) -> tuple[bool, bool, int]:
+    """Kernel (frames, carry) against the plain version's: (frames
+    byte-equal, carry byte-equal, largest absolute difference of a frame
+    word or a carry value)."""
+    f_eq = fk.shape == fp.shape and torch.equal(
+        fk.view(torch.int32), fp.view(torch.int32))
+    c_eq = ck.shape == cp.shape and torch.equal(ck, cp)
+    err = -1
+    if fk.shape == fp.shape and ck.shape == cp.shape:
+        err = max(int((as_u64(fk) - as_u64(fp)).abs().max()),
+                  int((ck.int() - cp.int()).abs().max()))
+    return f_eq, c_eq, err
+
+
 def time_cuda(fn, reps: int = REPS) -> float:
     """Median milliseconds of fn() over reps warm runs, by CUDA events."""
     for _ in range(3):
@@ -128,10 +159,21 @@ def main() -> int:
         EncodeConfig, encode_frames, encode_frames_device, index_frames,
     )
     from mjpeg423_tpu_torch.ops import _build, encode_fused as ef, transform_fused as tf
-    from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
+    from mjpeg423_tpu_torch.ops.scale import downscale_raster_host
+    from mjpeg423_tpu_torch.runtime import DecodeConfig, DecodePipeline, Profiler
+
+    counters = ("LAUNCHES", "LAUNCHES_CM", "LAUNCHES_I8")
+
+    def reset_counts() -> None:
+        for c in counters:
+            setattr(tf, c, 0)
+
+    def read_counts() -> dict:
+        return {c: getattr(tf, c) for c in counters}
 
     failures: list[str] = []
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # ---- 1. the card -----------------------------------------------------
     smi = subprocess.run(
@@ -183,15 +225,7 @@ def main() -> int:
                     torch.cuda.synchronize()
                     fp, cp = tf.decode_window_fused_ref(amps, seg, carry, **kw)
                     torch.cuda.synchronize()
-                    f_eq = fk.shape == fp.shape and torch.equal(
-                        fk.view(torch.int32), fp.view(torch.int32))
-                    c_eq = torch.equal(ck, cp)
-                    err = 0
-                    if fk.shape == fp.shape:
-                        err = max(
-                            int((as_u64(fk) - as_u64(fp)).abs().max()),
-                            int((ck.int() - cp.int()).abs().max()),
-                        )
+                    f_eq, c_eq, err = compare(fk, ck, fp, cp)
                     max_err = max(max_err, err)
                     ok = f_eq and c_eq
                     print(f"[kernel-vs-plain] {gname} {kind} raster={raster} "
@@ -227,6 +261,69 @@ def main() -> int:
         if not same:
             failures.append(f"enc-kernel-vs-plain {gname}")
 
+    # ---- 3c. coefficient-major and int8-packed kernels vs plain ------------
+    cm_err = i8_err = 0
+    lay_inputs = {}
+    for gname, (h, w) in GEOMS.items():
+        bh, bw = h // 8, w // 8
+        nb = bh * bw
+        for kind, (lo, hi) in (("realistic", (-2047, 2048)),
+                               ("full-range", (-32768, 32768))):
+            amps = torch.from_numpy(
+                rng.integers(lo, hi, size=(3, W, nb, 64), dtype=np.int16)
+            ).to(dev)
+            seg_np = rng.random(W) < 0.25
+            seg_np[0] = False  # leading P-frame continues the random carry
+            seg = torch.from_numpy(seg_np).to(dev)
+            carry = torch.from_numpy(
+                rng.integers(-32768, 32768, size=(3, nb, 64), dtype=np.int16)
+            ).to(dev)
+            ac_np = rng.integers(-128, 128, size=(3, W, nb, 64), dtype=np.int8)
+            ac_np[..., 0] |= 1  # nonzero everywhere: the DC must replace it
+            ac8 = torch.from_numpy(ac_np).to(dev)
+            dc = amps[..., 0].contiguous()
+            if kind == "realistic":
+                lay_inputs[gname] = (amps, seg, carry, dc, ac8, bh, bw)
+            for raster in (True, False):
+                for k in (1, 2):
+                    kw = dict(blocks_h=bh, blocks_w=bw, raster=raster,
+                              rows_per_step=k)
+                    # The carry's relayout, applied with a frame axis.
+                    a_cm = tf.carry_to_cm(amps, bh, bw, k)
+                    c_cm = tf.carry_to_cm(carry, bh, bw, k)
+                    fk, ck = tf.decode_window_fused_cm(a_cm, seg, c_cm, **kw)
+                    torch.cuda.synchronize()
+                    fp, cp = tf.decode_window_fused_cm_ref(a_cm, seg, c_cm, **kw)
+                    f1, _ = tf.decode_window_fused(amps, seg, carry, **kw)
+                    torch.cuda.synchronize()
+                    f_eq, c_eq, err = compare(fk, ck, fp, cp)
+                    ok = f_eq and c_eq
+                    as_k1 = torch.equal(fk.view(torch.int32), f1.view(torch.int32))
+                    cm_err = max(cm_err, err)
+                    print(f"[cm-kernel-vs-plain] {gname} {kind} raster={raster} "
+                          f"k={k}: frames byte-equal={f_eq} carry byte-equal="
+                          f"{c_eq} max_abs_err={err}, frames equal to the block-major "
+                          f"kernel's={as_k1} {'PASS' if ok and as_k1 else 'FAIL'}",
+                          flush=True)
+                    if not (ok and as_k1):
+                        failures.append(f"cm-kernel-vs-plain {gname} {kind} "
+                                        f"raster={raster} k={k}")
+                kw = dict(blocks_h=bh, blocks_w=bw, raster=raster)
+                fk, ck = tf.decode_window_fused_i8(dc, ac8, seg, carry, **kw)
+                torch.cuda.synchronize()
+                fp, cp = tf.decode_window_fused_i8_ref(dc, ac8, seg, carry, **kw)
+                torch.cuda.synchronize()
+                f_eq, c_eq, err = compare(fk, ck, fp, cp)
+                ok = f_eq and c_eq
+                i8_err = max(i8_err, err)
+                print(f"[i8-kernel-vs-plain] {gname} dc {kind} raster={raster}: "
+                      f"frames byte-equal={f_eq} carry byte-equal={c_eq} "
+                      f"max_abs_err={err} {'PASS' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    failures.append(f"i8-kernel-vs-plain {gname} {kind} "
+                                    f"raster={raster}")
+            del amps, ac8, dc, a_cm, fk, fp, f1
+
     # ---- 4. main path ----------------------------------------------------
     clips = {}
     gops = {}
@@ -251,18 +348,19 @@ def main() -> int:
     for gname in clips:
         h, w = GEOMS[gname]
         pipe.warmup(w, h)
-    tf.LAUNCHES = 0
+    reset_counts()
     got_all = {}
     for gname, (mpg, _want, _nf, _src) in clips.items():
         t0 = time.perf_counter()
         got_all[gname] = pipe.decode_array(mpg)
         print(f"[main] decode_array {gname} on cuda: "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
-    launches = tf.LAUNCHES
+    counts = read_counts()
+    launches = counts["LAUNCHES"]
     windows = sum(-(-nf // pipe.config.frames_per_batch)
                   for _mpg, _w, nf, _s in clips.values())
-    ok = launches == windows
-    print(f"[main] kernel launches {launches}, windows decoded {windows} "
+    ok = launches == windows and sum(counts.values()) == windows
+    print(f"[main] kernel launches {counts}, windows decoded {windows} "
           f"{'PASS' if ok else 'FAIL'}", flush=True)
     if not ok:
         failures.append("main path launches")
@@ -319,6 +417,61 @@ def main() -> int:
               flush=True)
         if not same:
             failures.append(f"encode round trip {gname}")
+
+    # ---- 4c. the main path in the other two input layouts ------------------
+    layouts = {
+        "coef_major": (dict(coef_major=True), "LAUNCHES_CM", "parse/cm_windows"),
+        "pack_i8": (dict(pack_i8=True), "LAUNCHES_I8", "parse/i8_windows"),
+    }
+    layout_launches = {}
+    for name, (cfg, counter, probe) in layouts.items():
+        prof = Profiler()
+        lpipe = DecodePipeline(DecodeConfig(**cfg), device="cuda", profiler=prof)
+        for gname in clips:
+            h, w = GEOMS[gname]
+            lpipe.warmup(w, h)
+        reset_counts()
+        got_lay = {gname: lpipe.decode_array(mpg)
+                   for gname, (mpg, _w, _nf, _s) in clips.items()}
+        counts = read_counts()
+        layout_launches[name] = counts[counter]
+        parsed = prof.probe(probe).count
+        ok = counts[counter] == parsed == windows and sum(counts.values()) == windows
+        print(f"[main-{name}] kernel launches {counts}, {probe} {parsed}, "
+              f"windows decoded {windows}: every window through its layout's "
+              f"kernel {'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"main path {name} launches")
+        for gname, (_mpg, want, nf, _src) in clips.items():
+            got = got_lay[gname]
+            same = got.shape == want.shape and got.dtype == want.dtype and \
+                np.array_equal(got, want)
+            print(f"[main-{name}] decode_array {gname}: shape {got.shape}, "
+                  f"byte-equal to the plain CPU path={same} "
+                  f"{'PASS' if same else 'FAIL'}", flush=True)
+            if not same:
+                failures.append(f"main path {name} {gname}")
+
+    # ---- 4d. thumbnails and clip farms, downscaled on the card -------------
+    mpg_hd, want_hd = clips["1920x1088"][:2]
+    idx, thumbs = pipe.decode_iframes_array(mpg_hd, scale=4)
+    iframes = np.flatnonzero(index_frames(mpg_hd).is_iframe)
+    same = np.array_equal(idx, iframes) and np.array_equal(
+        thumbs, downscale_raster_host(want_hd, 4)[iframes])
+    print(f"[scale] decode_iframes_array 1920x1088 scale=4: frames {idx.tolist()} "
+          f"{thumbs.shape}, equal to the host downscale of phase 4's frames="
+          f"{same} {'PASS' if same else 'FAIL'}", flush=True)
+    if not same:
+        failures.append("decode_iframes_array scale=4")
+    mpg_sd, want_sd = clips["640x480"][:2]
+    farm = pipe.decode_streams_arrays([mpg_sd, mpg_sd], scale=2)
+    want_small = downscale_raster_host(want_sd, 2)
+    same = len(farm) == 2 and all(np.array_equal(f, want_small) for f in farm)
+    print(f"[scale] decode_streams_arrays 2 x 640x480 scale=2: "
+          f"{[f.shape for f in farm]}, equal to the host downscale of phase 4's "
+          f"frames={same} {'PASS' if same else 'FAIL'}", flush=True)
+    if not same:
+        failures.append("decode_streams_arrays scale=2")
 
     # ---- 5. timings ------------------------------------------------------
     timing = {}
@@ -387,11 +540,57 @@ def main() -> int:
             print(f"[enc-e2e] {gname} probe {line}")
         sys.stdout.flush()
 
+    # ---- 5c. the other two layouts: kernels and end-to-end rates ----------
+    lay_timing = {}
+    for gname, (amps, seg, carry, dc, ac8, bh, bw) in lay_inputs.items():
+        kw = dict(blocks_h=bh, blocks_w=bw, raster=False)
+        a_cm = tf.carry_to_cm(amps, bh, bw, 1)
+        c_cm = tf.carry_to_cm(carry, bh, bw, 1)
+        t = {
+            "cm": time_cuda(lambda: tf.decode_window_fused_cm(a_cm, seg, c_cm, **kw)),
+            "cm_plain": time_cuda(lambda: tf.decode_window_fused_cm_ref(
+                a_cm, seg, c_cm, **kw), reps=10),
+            "i8": time_cuda(lambda: tf.decode_window_fused_i8(dc, ac8, seg, carry, **kw)),
+            "i8_plain": time_cuda(lambda: tf.decode_window_fused_i8_ref(
+                dc, ac8, seg, carry, **kw), reps=10),
+            "bm": time_cuda(lambda: tf.decode_window_fused(amps, seg, carry, **kw)),
+        }
+        lay_timing[gname] = t
+        print(f"[lay-time] {gname} W={W} blocked k=1, ms/window: "
+              f"cm kernel {t['cm']:.4f} plain {t['cm_plain']:.4f} "
+              f"({t['cm_plain'] / t['cm']:.2f}x); i8 kernel {t['i8']:.4f} plain "
+              f"{t['i8_plain']:.4f} ({t['i8_plain'] / t['i8']:.2f}x); "
+              f"block-major kernel in the same call {t['bm']:.4f}", flush=True)
+
+    lay_e2e = {}
+    for name, (cfg, _counter, _probe) in layouts.items():
+        for gname, (mpg, _want, nf, _src) in clips.items():
+            p2 = DecodePipeline(DecodeConfig(**cfg), device="cuda")
+            h, w = GEOMS[gname]
+            p2.warmup(w, h)
+            p2.decode_array(mpg)
+            p2.profiler = prof = Profiler()
+            runs = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                p2.decode_array(mpg)
+                runs.append(time.perf_counter() - t0)
+            med = statistics.median(runs)
+            lay_e2e.setdefault(name, {})[gname] = nf / med
+            print(f"[lay-e2e] {name} {gname}: decode_array {nf} frames, median "
+                  f"of {len(runs)} {med * 1e3:.2f} ms -> {nf / med:.1f} frames/s "
+                  f"(min {nf / max(runs):.1f}, max {nf / min(runs):.1f}; "
+                  f"default config {e2e[gname]:.1f} in phase 5)")
+            for line in prof.format_report().splitlines():
+                print(f"[lay-e2e] {name} {gname} probe {line}")
+            sys.stdout.flush()
+
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
     k_ms, p_ms = timing["1920x1088"]
     v_ms, vp_ms = timing["640x480"]
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_window_fused",
         "route": "cuda",
@@ -418,6 +617,32 @@ def main() -> int:
         "ms_640x480": enc_timing["640x480"][0],
         "plain_ms_640x480": enc_timing["640x480"][1],
         "e2e_frames_per_s": enc_e2e,
+    }, {
+        "name": "decode_window_fused_cm",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": CM_REPLACES,
+        "launches": layout_launches["coef_major"],
+        "max_abs_err": cm_err,
+        "ms": lay_timing["1920x1088"]["cm"],
+        "plain_ms": lay_timing["1920x1088"]["cm_plain"],
+        "shape": f"W={W} 1920x1088 blocked k=1",
+        "ms_640x480": lay_timing["640x480"]["cm"],
+        "plain_ms_640x480": lay_timing["640x480"]["cm_plain"],
+        "e2e_frames_per_s": lay_e2e["coef_major"],
+    }, {
+        "name": "decode_window_fused_i8",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": I8_REPLACES,
+        "launches": layout_launches["pack_i8"],
+        "max_abs_err": i8_err,
+        "ms": lay_timing["1920x1088"]["i8"],
+        "plain_ms": lay_timing["1920x1088"]["i8_plain"],
+        "shape": f"W={W} 1920x1088 blocked",
+        "ms_640x480": lay_timing["640x480"]["i8"],
+        "plain_ms_640x480": lay_timing["640x480"]["i8_plain"],
+        "e2e_frames_per_s": lay_e2e["pack_i8"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -130,6 +130,16 @@ def load() -> ctypes.CDLL:
                 i32, i32, i32, i32, i32, i32, ptr,
             ]
             lib.mj423_decode_window.restype = i32
+            lib.mj423_decode_window_cm.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr,
+                i32, i32, i32, i32, i32, i32, ptr,
+            ]
+            lib.mj423_decode_window_cm.restype = i32
+            lib.mj423_decode_window_i8.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                i32, i32, i32, i32, i32, ptr,
+            ]
+            lib.mj423_decode_window_i8.restype = i32
             lib.mj423_encode_window.argtypes = [
                 ptr, ptr, ptr, i32, i32, i32, i32, ptr,
             ]

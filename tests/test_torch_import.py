@@ -27,6 +27,7 @@ SCRIPTS = {
         import mjpeg423_tpu_torch.ops._build
         import mjpeg423_tpu_torch.ops.encode
         import mjpeg423_tpu_torch.ops.encode_fused
+        import mjpeg423_tpu_torch.ops.scale
         import mjpeg423_tpu_torch.codec
         import mjpeg423_tpu_torch.codec.encoder
         import mjpeg423_tpu_torch.runtime
@@ -57,6 +58,35 @@ SCRIPTS = {
         assert np.array_equal(got, decode_stream_array(data))
         res, rec = pipe.decode_resilient_array(data)
         assert np.array_equal(res, got) and rec.skipped == []
+    """,
+    "layouts_streams_scale": """
+        from mjpeg423_tpu.codec.decoder import decode_stream_array
+        from mjpeg423_tpu.utils.config import DecodeConfig
+        from mjpeg423_tpu_torch.codec import encode_frames
+        from mjpeg423_tpu_torch.ops.scale import downscale_raster_host
+        from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
+        rng = np.random.default_rng(7)
+        base = rng.integers(0, 256, (16, 24, 3))
+        frames = []
+        for t in range(5):
+            f = base.copy()
+            f[t:t + 8, 2 * t:2 * t + 8] = 255
+            frames.append(f.astype(np.uint8))
+        data = encode_frames(frames, max_i_interval=3)
+        want = decode_stream_array(data)
+        for cfg in (dict(coef_major=True), dict(pack_i8=True)):
+            prof = Profiler()
+            pipe = DecodePipeline(DecodeConfig(frames_per_batch=2, **cfg),
+                                  device="cpu", profiler=prof)
+            pipe.warmup(24, 16)
+            assert np.array_equal(pipe.decode_array(data), want)
+            assert (prof.probe("parse/cm_windows").count
+                    + prof.probe("parse/i8_windows").count) == 3
+            a, b = pipe.decode_streams_arrays([data, data], scale=2)
+            assert np.array_equal(a, downscale_raster_host(want, 2))
+            assert np.array_equal(b, a)
+            idx, thumbs = pipe.decode_iframes_array(data, scale=4)
+            assert np.array_equal(thumbs, downscale_raster_host(want, 4)[idx])
     """,
     "encode_frames_device": """
         from mjpeg423_tpu.utils.config import EncodeConfig

@@ -18,10 +18,13 @@ import torch
 from mjpeg423_tpu.codec import decoder, encoder
 from mjpeg423_tpu.core import format as fmt
 from mjpeg423_tpu.core.format import Frame, serialize_file
+from mjpeg423_tpu.native import centropy
 from mjpeg423_tpu.ops import entropy_ref
 from mjpeg423_tpu.utils.config import DecodeConfig
 from mjpeg423_tpu_torch.ops import transform_fused as tf
-from mjpeg423_tpu_torch.runtime import DecodePipeline
+from mjpeg423_tpu_torch.ops.scale import downscale_raster_host
+from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
+from tests_helpers_overflow import craft_wide_stream
 
 H, WD = 32, 48
 
@@ -233,36 +236,204 @@ def test_decode_resilient_matches_jax(jax_runtime, stream):
     assert rec.resyncs == jrec.resyncs
 
 
-@pytest.mark.parametrize(
-    "make",
-    [
-        lambda: DecodePipeline(DecodeConfig(coef_major=True), device="cpu"),
-        lambda: DecodePipeline(DecodeConfig(pack_i8=True), device="cpu"),
-        lambda: DecodePipeline(mesh=object(), device="cpu"),
-    ],
-    ids=["coef-major", "pack-i8", "mesh"],
-)
-def test_unported_configurations_refuse(make):
+def test_unported_configurations_refuse():
     with pytest.raises(NotImplementedError):
-        make()
+        DecodePipeline(mesh=object(), device="cpu")
 
 
+LAYOUTS = {
+    "coef-major": (dict(coef_major=True), "parse/cm_windows"),
+    "pack-i8": (dict(pack_i8=True), "parse/i8_windows"),
+}
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_configurations_decode_like_jax(jax_runtime, stream, name):
+    """coef_major=True and pack_i8=True parse their own layouts and decode
+    like the JAX pipeline (its Pallas kernels in interpret mode) and the
+    oracle."""
+    data, want = stream
+    cfg, probe = LAYOUTS[name]
+    prof = Profiler()
+    port = DecodePipeline(DecodeConfig(frames_per_batch=3, **cfg),
+                          device="cpu", profiler=prof)
+    assert port.parse_layout() == ("cm" if "coef_major" in cfg else "bm")
+    got = port.decode_array(data)
+    if centropy.native_available():
+        assert prof.probe(probe).count == 4  # every window: 11 frames by 3
+    jpipe = jax_runtime.DecodePipeline(
+        DecodeConfig(frames_per_batch=3, use_pallas=True, **cfg)
+    )
+    np.testing.assert_array_equal(got, jpipe.decode_array(data))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_i8_overflow_falls_back_to_int16(jax_runtime):
+    """AC amplitudes beyond int8: every window parses int16 and decodes on
+    the block-major path, exactly."""
+    data, _ = craft_wide_stream(np.random.default_rng(5))
+    prof = Profiler()
+    got = DecodePipeline(DecodeConfig(frames_per_batch=3, pack_i8=True),
+                         device="cpu", profiler=prof).decode_array(data)
+    assert prof.probe("parse/i8_windows").count == 0
+    np.testing.assert_array_equal(got, decoder.decode_stream_array(data))
+    np.testing.assert_array_equal(got, _jax_decode(jax_runtime, data, 3))
+
+
+@pytest.mark.skipif(not centropy.native_available(), reason="no native codec")
+def test_cm_carry_switches_layout_mid_stream(stream, monkeypatch):
+    """The native cm parse declines window 1 of 4: the carry goes cm -> bm
+    for it and bm -> cm after it, and the stream decodes exactly."""
+    data, want = stream
+    index = fmt.index_frames(data)
+    real = centropy.decode_batch_cm
+
+    def decode_batch_cm(data, offs, lens, *args):
+        if offs[0] == index.plane_off[0, 3]:  # window 1 starts at frame 3
+            return None
+        return real(data, offs, lens, *args)
+
+    monkeypatch.setattr(centropy, "decode_batch_cm", decode_batch_cm)
+    prof = Profiler()
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=3, coef_major=True),
+                          device="cpu", profiler=prof)
+    casts = []
+    cast = pipe._carry_cast
+
+    def spy(carry, to_tag, *args):
+        casts.append((to_tag, tuple(carry.shape)))
+        return cast(carry, to_tag, *args)
+
+    pipe._carry_cast = spy
+    np.testing.assert_array_equal(pipe.decode_array(data), want)
+    nb = index.header.blocks_per_plane
+    bh, bw = index.header.blocks_h, index.header.blocks_w
+    assert casts == [("bm", (3, bh, 64, bw)), ("cm", (3, nb, 64))]
+    assert prof.probe("parse/cm_windows").count == 3
+
+
+def _clips(rng, counts, h=16, w=24):
+    """Same-geometry clips; the second starts with a P-frame (frame 0's
+    type byte flipped: it decodes as deltas from a zero state)."""
+    clips = [encoder.encode_frames(_frames(rng, n, h, w), max_i_interval=3)
+             for n in counts]
+    mid = bytearray(clips[1])
+    mid[24] = 1
+    clips[1] = bytes(mid)
+    assert not fmt.index_frames(clips[1]).is_iframe[0]
+    return clips
+
+
+@pytest.fixture(scope="module")
+def clips():
+    clips = _clips(np.random.default_rng(17), [5, 4, 7])
+    return clips, [decoder.decode_stream_array(c) for c in clips]
+
+
+def _assert_same(a, b):
+    """Byte-equal nested results: arrays, tuples and lists of them, ints."""
+    if isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_same(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b
+
+
+ENTRY_POINTS = {
+    "scale": lambda p, d: p.decode_array(d[0], scale=2),
+    "decode_streams": lambda p, d: list(p.decode_streams(d)),
+    "decode_iframes": lambda p, d: list(p.decode_iframes(d[2], scale=4)),
+    "decode_iframes_array": lambda p, d: p.decode_iframes_array(d[0]),
+    "decode_streams_arrays": lambda p, d: p.decode_streams_arrays(d, scale=2),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_match_jax(jax_runtime, clips, name):
+    """Each entry point beside decode_array gives the JAX pipeline's
+    result, with the default configuration."""
+    datas, _ = clips
+    call = ENTRY_POINTS[name]
+    got = call(DecodePipeline(DecodeConfig(frames_per_batch=4), device="cpu"),
+               datas)
+    jpipe = jax_runtime.DecodePipeline(
+        DecodeConfig(frames_per_batch=4, use_pallas=False)
+    )
+    _assert_same(got, call(jpipe, datas))
+
+
+@pytest.mark.parametrize("scale", [1, 2], ids=["full", "scale-2"])
 @pytest.mark.parametrize(
-    "call",
-    [
-        lambda p, d: p.decode_array(d, scale=2),
-        lambda p, d: p.decode_streams([d]),
-        lambda p, d: list(p.decode_iframes(d)),
-        lambda p, d: p.decode_iframes_array(d),
-        lambda p, d: p.decode_streams_arrays([d]),
-    ],
-    ids=["scale", "decode_streams", "decode_iframes", "decode_iframes_array",
-         "decode_streams_arrays"],
+    "cfg", [{}, dict(coef_major=True), dict(pack_i8=True)],
+    ids=["default", "coef-major", "pack-i8"],
 )
-def test_unported_entry_points_refuse(stream, call):
+def test_decode_streams_and_iframes_match_jax(jax_runtime, clips, cfg, scale):
+    """Three clips, a P-first one among them, through shared windows (seam
+    windows parse block-major, the others in the configured layout), and
+    their I-frames alone: like the JAX pipeline (kernels in interpret mode
+    for the cm and i8 layouts) and the downscaled oracle."""
+    datas, wants = clips
+    wants = [downscale_raster_host(w, scale) for w in wants]
+    prof = Profiler()
+    port = DecodePipeline(DecodeConfig(frames_per_batch=4, **cfg),
+                          device="cpu", profiler=prof)
+    jpipe = jax_runtime.DecodePipeline(
+        DecodeConfig(frames_per_batch=4, use_pallas=bool(cfg), **cfg)
+    )
+    got = port.decode_streams_arrays(datas, scale=scale)
+    if cfg and centropy.native_available():
+        # Windows 0 and 3 of 4 lie inside one clip; 1 and 2 are seams.
+        probe = "parse/cm_windows" if "coef_major" in cfg else "parse/i8_windows"
+        assert prof.probe(probe).count == 2
+    _assert_same(got, wants)
+    _assert_same(got, jpipe.decode_streams_arrays(datas, scale=scale))
+    thumbs = list(port.decode_streams(datas, iframes_only=True, scale=scale))
+    _assert_same(thumbs, list(jpipe.decode_streams(
+        datas, iframes_only=True, scale=scale)))
+    for si, fi, frame in thumbs:
+        assert fi == 0 or fmt.index_frames(datas[si]).is_iframe[fi]
+        np.testing.assert_array_equal(frame, wants[si][fi])
+    idx, frames = port.decode_iframes_array(datas[2], scale=scale)
+    np.testing.assert_array_equal(
+        idx, np.flatnonzero(fmt.index_frames(datas[2]).is_iframe))
+    np.testing.assert_array_equal(frames, wants[2][idx])
+
+
+def test_decode_streams_stop_and_bad_input(clips):
+    datas, wants = clips
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4), device="cpu")
+    assert pipe.decode_streams_arrays([]) == []
+    # stop ends the stream before the next dispatch; what was dispatched
+    # is still delivered.
+    got = list(pipe.decode_streams(datas, stop=lambda: True))
+    assert got == []
+    calls = iter([False, True])
+    got = list(pipe.decode_streams(datas, stop=lambda: next(calls)))
+    assert [(si, fi) for si, fi, _ in got] == [(0, 0), (0, 1), (0, 2), (0, 3)]
+    other = encoder.encode_frames(_frames(np.random.default_rng(3), 2, 16, 32))
+    with pytest.raises(ValueError, match="same-geometry"):
+        next(pipe.decode_streams([datas[0], other]))
+    with pytest.raises(ValueError, match="scale"):
+        pipe.decode_array(datas[0], scale=3)
+
+
+def test_decode_resilient_packed_i8_matches_jax(jax_runtime, stream):
     data, _ = stream
-    with pytest.raises(NotImplementedError):
-        call(DecodePipeline(device="cpu"), data)
+    port = DecodePipeline(DecodeConfig(frames_per_batch=3, pack_i8=True),
+                          device="cpu")
+    bad = _corrupt_plane(data, fmt.index_frames(data), 6, port)
+    got, rec = port.decode_resilient_array(bad, scale=2)
+    jpipe = jax_runtime.DecodePipeline(
+        DecodeConfig(frames_per_batch=3, use_pallas=False)
+    )
+    want, jrec = jpipe.decode_resilient_array(bad, scale=2)
+    np.testing.assert_array_equal(got, want)
+    assert rec.skipped == jrec.skipped == [(6, 8)]
+    assert rec.resyncs == jrec.resyncs
 
 
 @pytest.mark.parametrize(
@@ -310,3 +481,39 @@ def test_cuda_device_resident_and_warmup(cuda, stream):
         np.testing.assert_array_equal(
             host[:w.count], want[w.start_frame:w.start_frame + w.count]
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_cuda_layouts_run_their_kernels(cuda, stream, name):
+    """coef_major and pack_i8 on the card: one launch of their own kernel
+    per window, frames equal to the oracle and to the CPU path."""
+    data, want = stream
+    cfg, _ = LAYOUTS[name]
+    counter = "LAUNCHES_CM" if "coef_major" in cfg else "LAUNCHES_I8"
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=3, **cfg), device=cuda)
+    pipe.warmup(WD, H)
+    before = getattr(tf, counter), tf.LAUNCHES
+    got = pipe.decode_array(data)
+    assert (getattr(tf, counter), tf.LAUNCHES) == (before[0] + 4, before[1])
+    np.testing.assert_array_equal(got, want)
+    cpu = DecodePipeline(DecodeConfig(frames_per_batch=3, **cfg), device="cpu")
+    np.testing.assert_array_equal(got, cpu.decode_array(data))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "cfg", [{}, dict(coef_major=True), dict(pack_i8=True)],
+    ids=["default", "coef-major", "pack-i8"],
+)
+def test_cuda_streams_and_scale_match_cpu(cuda, clips, cfg):
+    datas, wants = clips
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=4, **cfg), device=cuda)
+    cpu = DecodePipeline(DecodeConfig(frames_per_batch=4, **cfg), device="cpu")
+    got = pipe.decode_streams_arrays(datas, scale=2)
+    _assert_same(got, cpu.decode_streams_arrays(datas, scale=2))
+    _assert_same(got, [downscale_raster_host(w, 2) for w in wants])
+    _assert_same(pipe.decode_iframes_array(datas[2], scale=4),
+                 cpu.decode_iframes_array(datas[2], scale=4))
+    np.testing.assert_array_equal(pipe.decode_array(datas[0], scale=8),
+                                  downscale_raster_host(wants[0], 8))
