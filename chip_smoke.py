@@ -32,6 +32,25 @@ The other two input layouts of the decode window have their own phases:
      the card: equal to the host downscale of phase 4's frames;
   5c. both kernels against their plain versions (CUDA events) and the
      end-to-end decode rate of each configuration.
+The sharded decode path (parallel/) and its kernel have their own phases:
+  3e. the coefficient-major IDCT + colour kernel on pre-accumulated states
+     against its plain PyTorch version on the card, at the block counts of
+     one 20-frame window of 640x480 (96,000) and of 1920x1088 (652,800),
+     realistic and full-range int16 states, at a block count that is not
+     a multiple of 32, and at the block counts one cell of phase 4e's
+     meshes hands it (261,120, 244,800 and 57,600): words byte-equal; then
+     decode_transform_states_kernel, the entry the sharded decode calls
+     (transpose in, kernel, raster permutation out), against
+     ops/transform.decode_transform_states on the card at those cells'
+     (frames, blocks, 64) shapes: frames byte-equal;
+  4e. decode_stream_sharded on phase 4's clips over meshes that repeat
+     cuda:0, and over four distinct cards where the machine has them
+     (4x1 and 2x2 with gop_aligned=False: the cross-shard carry
+     exchange, then that kernel; 4x1 and 2x2 GOP-aligned: the
+     coefficient-major and block-major window kernels per shard), each
+     byte-equal to phase 4's frames from the single-device pipeline, with
+     the launch counts of each run;
+  5e. that kernel against its plain version (CUDA events).
 The encode path has its own phases beside these:
   3b. the fused encode-window kernel (FDCT + quantize) against its plain
      PyTorch version on the card at 640x480 and 1920x1088, W=16, random
@@ -46,7 +65,11 @@ The encode path has its own phases beside these:
      end-to-end encode rate with the default config, with its probes.
 
 The codec is integer arithmetic, so every comparison has tolerance 0.  The
-second-to-last line is a JSON object describing each kernel; the last is
+second-to-last line is a JSON object describing each kernel, with its time
+beside the least time the card could take for the same work (bound_ms: the
+larger of its bytes over the memory rate and its integer operations over the
+int32 rate; no single PyTorch call computes any of these functions, so
+library_ms is null); the last is
 {"ok": true, "device": {...}}, printed only when every phase passed.  The
 script exits nonzero without a result when torch sees no CUDA device.
 """
@@ -56,6 +79,8 @@ import sys
 
 # The port must never reach jax: make any import of it fail loudly.
 sys.modules["jax"] = None
+# ... nor the JAX package (checked at the end).
+JAX_PACKAGE = "mjpeg423_tpu"
 
 import json  # noqa: E402
 import statistics  # noqa: E402
@@ -79,6 +104,73 @@ ENC_RUNS = 5
 # The synthetic clips decode at ~33.5 dB against their source (measured at
 # 640x480 and 240x136 with the plain CPU path); garbage frames sit far below.
 MIN_PSNR_DB = 30.0
+K5_SOURCE = "mjpeg423_tpu_torch/csrc/transform_coefmajor.cu"
+K5_REPLACES = "mjpeg423_tpu/ops/transform_pallas.py:163"
+K5_REPS = 20
+# The main path's clips: geometry, frames, GOP length.
+CLIPS = (("1920x1088", 30, 12), ("640x480", 48, 24))
+# The (data, block) meshes of the sharded decodes that run K5.
+K5_MESHES = ((4, 1), (2, 2))
+
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): 3.35 TB/s
+# of device memory; 67 TFLOP/s float32 outside the tensor cores, which is 2
+# operations on 128 lanes per SM and clock.  An int32 instruction issues on
+# 64 lanes per SM and clock, a quarter of that rate, and that holds for the
+# whole mix the bounds assume: add, three-operand add (IADD3), multiply,
+# multiply-add (IMAD), shift, min/max, compare and select each count as ONE
+# operation.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS_PER_S = 67e12 / 4
+# The least machine operations that compute each function, not the
+# operators of the source text: a multiply and the add that depends on it
+# are one IMAD (so is `x << 13` followed by an add: a multiply by 8192), a
+# sum of three terms is one IADD3, and a rounding constant or a level shift
+# rides in an add that is there anyway.  Address arithmetic and the
+# unpacking of loaded words are not counted.
+#   islow IDCT butterfly, 44: the even part's rotation 4 (add, multiply, 2
+#     IMAD) and its four sums 6 (x0 +- x4, 4 IMAD by 8192); the odd part 18
+#     (4 adds; z5 add + multiply; z3, z4 2 IMAD; z1, z2 2 multiplies; t0..t3
+#     an add and an IMAD each); 8 outputs of an IADD3 with the rounding
+#     constant and a shift.  A plane block is 16 butterflies and 64 clamps
+#     of 2 (the +128 rides in pass 2's rounding constant);
+#   colour conversion and pack of one pixel, 16: y << 14, r and b one IMAD
+#     each, g two (the chroma's -128 folds into its clamp's limits), three
+#     normalizations of shift, min, max, and the pack as 2 IMAD;
+#   dequantization and recurrence of one coefficient, 3: the select of the
+#     previous state, one IMAD, the int16 sign extension;
+#   forward DCT butterfly, 44 in both passes: 12 sums and differences;
+#     outputs 0 and 4 two each; 2 and 6 six together (add, 2 IMAD with the
+#     rounding constant in the first, IMAD, 2 shifts); the odd part 22 (4
+#     adds; z5 add + IMAD with the rounding constant; z3, z4 2 IMAD; z1, z2
+#     2 multiplies; 4 outputs of IMAD, add, shift).  A plane block is 16
+#     butterflies, 128 int16 sign extensions and 64 quantizations of 6
+#     (abs, 2|c| + q, high multiply by q's reciprocal, shift, compare,
+#     negating select).
+OPS_IDCT_PLANE = 16 * 44 + 64 * 2
+OPS_COLOUR_BLOCK = 64 * 16
+OPS_RECUR_PLANE = 64 * 3
+OPS_FDCT_QUANT_PLANE = 16 * 44 + 128 + 64 * 6
+OPS_DECODE_BLOCK = 3 * (OPS_IDCT_PLANE + OPS_RECUR_PLANE) + OPS_COLOUR_BLOCK
+OPS_K5_BLOCK = 3 * OPS_IDCT_PLANE + OPS_COLOUR_BLOCK
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least milliseconds the card could take: each input byte read
+    once and each output byte written once at the memory rate, or the
+    least int32 instructions (see OPS_*) at one per lane and clock,
+    whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def decode_window_bytes(w: int, nb: int, in_bytes_per_block: int) -> int:
+    """Bytes a fused decode window must move: amplitudes, the I-frame mask,
+    the two quant rows, the carry in and out, and the frames out."""
+    return (w * nb * in_bytes_per_block + w + 2 * 64 * 2
+            + 2 * 3 * nb * 64 * 2 + w * nb * 64 * 4)
 
 
 def synthetic_clip(rng, num_frames: int, h: int, w: int) -> list[np.ndarray]:
@@ -158,7 +250,11 @@ def main() -> int:
     from mjpeg423_tpu_torch.codec import (
         EncodeConfig, encode_frames, encode_frames_device, index_frames,
     )
-    from mjpeg423_tpu_torch.ops import _build, encode_fused as ef, transform_fused as tf
+    from mjpeg423_tpu_torch.ops import (
+        _build, encode_fused as ef, transform, transform_coefmajor as tc,
+        transform_fused as tf,
+    )
+    from mjpeg423_tpu_torch.parallel import decode_stream_sharded, make_mesh
     from mjpeg423_tpu_torch.ops.scale import downscale_raster_host
     from mjpeg423_tpu_torch.runtime import DecodeConfig, DecodePipeline, Profiler
 
@@ -167,6 +263,7 @@ def main() -> int:
     def reset_counts() -> None:
         for c in counters:
             setattr(tf, c, 0)
+        tc.LAUNCHES_K5 = 0
 
     def read_counts() -> dict:
         return {c: getattr(tf, c) for c in counters}
@@ -324,11 +421,78 @@ def main() -> int:
                                     f"raster={raster}")
             del amps, ac8, dc, a_cm, fk, fp, f1
 
+    # ---- 3e. IDCT + colour on coefficient-major states vs plain -----------
+    k5_err = 0
+    k5_inputs = {}
+    k5_cases = [(g, W * (h // 8) * (w // 8)) for g, (h, w) in GEOMS.items()]
+    k5_cases.append(("ragged", k5_cases[0][1] - 13))
+    # What one cell of a sharded decode of the main path's clips hands the
+    # kernel: the frame axis padded to the data axis, split over it, and
+    # the block rows split over the block axis.
+    shard_shapes = []
+    for gname, nf, _gop in CLIPS:
+        h, w = GEOMS[gname]
+        for nd, nbk in K5_MESHES:
+            shard_shapes.append(
+                (gname, nd, nbk, -(-nf // nd), h // 8 // nbk, w // 8))
+    for n in sorted({f * bh * bw for _g, _d, _b, f, bh, bw in shard_shapes}):
+        k5_cases.append(("shard", n))
+    for gname, n in k5_cases:
+        for kind, (lo, hi) in (("realistic", (-2047, 2048)),
+                               ("full-range", (-32768, 32768))):
+            st = [torch.from_numpy(
+                rng.integers(lo, hi, size=(64, n), dtype=np.int16)).to(dev)
+                for _ in range(3)]
+            if kind == "realistic" and gname in GEOMS:
+                k5_inputs[gname] = st
+            got = tc.transform_coefmajor(*st)
+            torch.cuda.synchronize()
+            want = tc.transform_coefmajor_ref(*st)
+            torch.cuda.synchronize()
+            same = got.shape == want.shape == (64, n) and \
+                got.dtype == want.dtype == torch.uint32 and \
+                torch.equal(got.view(torch.int32), want.view(torch.int32))
+            err = int((as_u64(got) - as_u64(want)).abs().max()) \
+                if got.shape == want.shape else -1
+            k5_err = max(k5_err, err)
+            print(f"[k5-kernel-vs-plain] {gname} N={n} (N % 32 = {n % 32}) "
+                  f"{kind}: words byte-equal={same} "
+                  f"max_abs_err={err} {'PASS' if same else 'FAIL'}", flush=True)
+            if not same:
+                failures.append(f"k5-kernel-vs-plain {gname} {kind}")
+            del st, got, want
+    # The entry the sharded decode calls, with its transpose into
+    # coefficient-major and its raster permutation, at those cells' shapes.
+    for gname, nd, nbk, f, bh, bw in shard_shapes:
+        st = [torch.from_numpy(rng.integers(
+            -2047, 2048, size=(f, bh * bw, 64), dtype=np.int16)).to(dev)
+            for _ in range(3)]
+        before = tc.LAUNCHES_K5
+        got = tc.decode_transform_states_kernel(*st, blocks_h=bh, blocks_w=bw)
+        torch.cuda.synchronize()
+        launched = tc.LAUNCHES_K5 - before
+        want = transform.decode_transform_states(*st, blocks_h=bh, blocks_w=bw)
+        torch.cuda.synchronize()
+        same = got.shape == want.shape == (f, bh * 8, bw * 8) and \
+            got.dtype == want.dtype == torch.uint32 and \
+            torch.equal(got.view(torch.int32), want.view(torch.int32))
+        err = int((as_u64(got) - as_u64(want)).abs().max()) \
+            if got.shape == want.shape else -1
+        k5_err = max(k5_err, err)
+        ok = same and launched == 1
+        print(f"[k5-states-vs-plain] {gname} cell of mesh {nd}x{nbk}: states "
+              f"({f}, {bh * bw}, 64) -> {tuple(got.shape)}, kernel launches "
+              f"{launched}, byte-equal to ops/transform.decode_transform_states="
+              f"{same} max_abs_err={err} {'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"k5-states-vs-plain {gname} {nd}x{nbk}")
+        del st, got, want
+
     # ---- 4. main path ----------------------------------------------------
     clips = {}
     gops = {}
     plain = DecodePipeline(device="cpu")
-    for gname, nf, gop in (("1920x1088", 30, 12), ("640x480", 48, 24)):
+    for gname, nf, gop in CLIPS:
         h, w = GEOMS[gname]
         src = synthetic_clip(rng, nf, h, w)
         t0 = time.perf_counter()
@@ -473,6 +637,50 @@ def main() -> int:
     if not same:
         failures.append("decode_streams_arrays scale=2")
 
+    # ---- 4e. sharded decode over meshes that repeat the card --------------
+    # (mesh, gop_aligned) -> the kernel every shard must go through.  The
+    # 1920x1088 clip has 3 GOPs, fewer than 4 data shards: its GOP-aligned
+    # 4x1 decode has an empty partition.  30 % 4 != 0: its unaligned decode
+    # pads the frame axis.
+    sharded_runs = [
+        *((m, False, "LAUNCHES_K5") for m in K5_MESHES),
+        ((4, 1), True, "LAUNCHES_CM"), ((2, 2), True, "LAUNCHES"),
+    ]
+    sharded_wall_s = {}
+    # One card stands in for four; where the machine has four, the same
+    # runs follow on four distinct cards (one stream each, real copies).
+    card_sets = {"cuda:0 repeated": [dev] * 4}
+    if torch.cuda.device_count() >= 4:
+        card_sets["4 cards"] = [torch.device("cuda", i) for i in range(4)]
+    sharded_launches = dict.fromkeys(
+        ("LAUNCHES", "LAUNCHES_CM", "LAUNCHES_I8", "LAUNCHES_K5"), 0)
+    for gname, (mpg, _want, nf, _src) in clips.items():
+        for cards, (nd, nbk), aligned, counter in (
+                (c, *r) for c in card_sets for r in sharded_runs):
+            mesh = make_mesh(nd, nbk, devices=card_sets[cards])
+            reset_counts()
+            t0 = time.perf_counter()
+            got = decode_stream_sharded(mpg, mesh, gop_aligned=aligned)
+            dt = time.perf_counter() - t0
+            sharded_wall_s[f"{gname} {nd}x{nbk} {cards} "
+                           f"gop_aligned={aligned}"] = round(dt, 4)
+            counts = {**read_counts(), "LAUNCHES_K5": tc.LAUNCHES_K5}
+            for c, v in counts.items():
+                sharded_launches[c] += v
+            same = got.shape == got_all[gname].shape and \
+                got.dtype == np.uint32 and np.array_equal(got, got_all[gname])
+            moved = counts[counter] == nd * nbk and \
+                sum(counts.values()) == nd * nbk
+            ok = same and moved
+            print(f"[sharded] decode_stream_sharded {gname} mesh {nd}x{nbk} "
+                  f"({cards}) gop_aligned={aligned}: {dt:.3f} s, launches {counts}, "
+                  f"one {counter} per shard={moved}, byte-equal to the "
+                  f"single-device frames={same} {'PASS' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failures.append(
+                    f"sharded {gname} {nd}x{nbk} {cards} aligned={aligned}")
+
     # ---- 5. timings ------------------------------------------------------
     timing = {}
     for gname, (amps, seg, carry, bh, bw) in inputs.items():
@@ -585,11 +793,50 @@ def main() -> int:
                 print(f"[lay-e2e] {name} {gname} probe {line}")
             sys.stdout.flush()
 
+    # ---- 5e. IDCT + colour on coefficient-major states ---------------------
+    k5_timing = {}
+    for gname, st in k5_inputs.items():
+        k_ms = time_cuda(lambda: tc.transform_coefmajor(*st), reps=K5_REPS)
+        p_ms = time_cuda(lambda: tc.transform_coefmajor_ref(*st), reps=10)
+        k5_timing[gname] = (k_ms, p_ms)
+        n = st[0].shape[1]
+        print(f"[k5-time] {gname} N={n} ({W} frames): kernel {k_ms:.4f} ms "
+              f"({W / k_ms * 1e3:.1f} frames/s); plain PyTorch {p_ms:.4f} ms; "
+              f"kernel/plain speedup {p_ms / k_ms:.2f}x", flush=True)
+
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib")
+              and sys.modules[m] is not None]
+    if loaded:
+        failures.append(f"the port imported {loaded}")
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
+    nb_hd = (1088 // 8) * (1920 // 8)
+    dec_ops = W * nb_hd * OPS_DECODE_BLOCK
+    bounds = {
+        "k1": bound(decode_window_bytes(W, nb_hd, 3 * 64 * 2), dec_ops),
+        "k2": bound(decode_window_bytes(W, nb_hd, 3 * 64 * 2), dec_ops),
+        "k3": bound(decode_window_bytes(W, nb_hd, 3 * (64 + 2)), dec_ops),
+        "k4": bound(ENC_W * nb_hd * 3 * 64 * (1 + 2),
+                    ENC_W * nb_hd * 3 * OPS_FDCT_QUANT_PLANE),
+        "k5": bound(W * nb_hd * 64 * (3 * 2 + 4), W * nb_hd * OPS_K5_BLOCK),
+    }
+    for name, b in bounds.items():
+        print(f"[bound] {name} 1920x1088: {b['bytes']} bytes, "
+              f"{b['operations']} int32 operations -> {b['bound_ms']:.4f} ms "
+              f"by {b['bound_by']}")
+
+    def bound_keys(name: str) -> dict:
+        b = bounds[name]
+        # No single PyTorch call computes any of these functions.
+        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": None}
     k_ms, p_ms = timing["1920x1088"]
     v_ms, vp_ms = timing["640x480"]
+    # Host-clock seconds of each sharded decode (parse, puts, kernels, gather
+    # and host copies), repeated here so the end of the output keeps them.
+    print(f"[sharded-summary] wall seconds {json.dumps(sharded_wall_s)}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_window_fused",
@@ -604,6 +851,8 @@ def main() -> int:
         "ms_640x480": v_ms,
         "plain_ms_640x480": vp_ms,
         "e2e_frames_per_s": e2e,
+        "sharded_launches": sharded_launches["LAUNCHES"],
+        **bound_keys("k1"),
     }, {
         "name": "encode_window_fused",
         "route": "cuda",
@@ -617,6 +866,7 @@ def main() -> int:
         "ms_640x480": enc_timing["640x480"][0],
         "plain_ms_640x480": enc_timing["640x480"][1],
         "e2e_frames_per_s": enc_e2e,
+        **bound_keys("k4"),
     }, {
         "name": "decode_window_fused_cm",
         "route": "cuda",
@@ -630,6 +880,8 @@ def main() -> int:
         "ms_640x480": lay_timing["640x480"]["cm"],
         "plain_ms_640x480": lay_timing["640x480"]["cm_plain"],
         "e2e_frames_per_s": lay_e2e["coef_major"],
+        "sharded_launches": sharded_launches["LAUNCHES_CM"],
+        **bound_keys("k2"),
     }, {
         "name": "decode_window_fused_i8",
         "route": "cuda",
@@ -643,6 +895,20 @@ def main() -> int:
         "ms_640x480": lay_timing["640x480"]["i8"],
         "plain_ms_640x480": lay_timing["640x480"]["i8_plain"],
         "e2e_frames_per_s": lay_e2e["pack_i8"],
+        **bound_keys("k3"),
+    }, {
+        "name": "transform_coefmajor",
+        "route": "cuda",
+        "source": K5_SOURCE,
+        "replaces": K5_REPLACES,
+        "launches": sharded_launches["LAUNCHES_K5"],
+        "max_abs_err": k5_err,
+        "ms": k5_timing["1920x1088"][0],
+        "plain_ms": k5_timing["1920x1088"][1],
+        "shape": f"N={W * nb_hd} ({W} frames of 1920x1088)",
+        "ms_640x480": k5_timing["640x480"][0],
+        "plain_ms_640x480": k5_timing["640x480"][1],
+        **bound_keys("k5"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

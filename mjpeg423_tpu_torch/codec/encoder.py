@@ -1,15 +1,27 @@
-"""Device encoder on a torch device: encode_frames_device.
+"""The encoder: the host half, then encode_frames_device on a torch device.
 
-The counterpart of the device half of mjpeg423_tpu/codec/encoder.py, on its
-fused select-then-pack structure (_encode_frames_device_fused there).  The
-host converts RGB to blocked YCbCr (float64, bit-exact with the reference's
-doubles) and packs; the device runs FDCT + quantize over windows of
-config.frames_per_batch frames (ops/encode_fused.encode_window_fused: the
-CUDA kernel on a CUDA device, its plain PyTorch version on the CPU).  The
-kernel returns ABSOLUTE quantized planes, so the whole back half (candidate
-sizes, smaller-wins frame types, container assembly) is the host encoder's
-own encode_quantized_frames, imported rather than copied: the containers
-are byte-identical to encode_frames by construction.
+Host half (down to LiveEncoder): copied from mjpeg423_tpu/codec/encoder.py
+lines 1-481 at commit bfc8537: _resolve_entropy_encode,
+_rgb_to_blocked_planes, FramePacker, encode_quantized_frames,
+encode_frames, _Quantizer and LiveEncoder.  It generates byte-exact .MPG
+containers with the reference encoder's pipeline and frame-type selection
+(reference: encoder/mjpeg423_encoder.c:18-231): per frame, RGB -> YCbCr ->
+FDCT -> quantize as I and (if not first) as P -> entropy-code both
+candidates -> keep the smaller, forcing I at frame 0 and at least every
+max_i_interval frames.  The previous frame's state is round(coef/quant)
+whichever candidate wins.  It runs on NumPy and the native C codec only.
+
+Device half (from PRODUCER_JOIN_TIMEOUT_S on): the counterpart of the
+device half of mjpeg423_tpu/codec/encoder.py, on its fused select-then-pack
+structure (_encode_frames_device_fused there).  The host converts RGB to
+blocked YCbCr (float64, bit-exact with the reference's doubles) and packs;
+the device runs FDCT + quantize over windows of config.frames_per_batch
+frames (ops/encode_fused.encode_window_fused: the CUDA kernel on a CUDA
+device, its plain PyTorch version on the CPU).  The kernel returns ABSOLUTE
+quantized planes, so the whole back half (candidate sizes, smaller-wins
+frame types, container assembly) is the host half's
+encode_quantized_frames: the containers are byte-identical to
+encode_frames by construction.
 
 config.overlap_device (default True) runs a producer thread that converts,
 stages and dispatches windows while the caller's thread fetches and packs
@@ -37,15 +49,463 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from mjpeg423_tpu.codec.encoder import (
-    _resolve_entropy_encode,
-    _rgb_to_blocked_planes,
-    encode_quantized_frames,
+from ..core import tables as T
+from ..core.format import (
+    FILE_HEADER_BYTES,
+    FRAME_HEADER_BYTES,
+    PAD512,
+    FileHeader,
+    Frame,
+    _U32x2,
+    _U32x4,
+    serialize_file,
 )
-from mjpeg423_tpu.utils.config import EncodeConfig
-from mjpeg423_tpu.utils.profile import default_profiler
+from ..native import centropy
+from ..ops import encode_fused, encode_ref, entropy_ref, resolve_device
+from ..ops.transform_ref import raster_to_blocks
+from ..utils.config import EncodeConfig
+from ..utils.profile import default_profiler
 
-from ..ops import encode_fused, resolve_device
+
+def _resolve_entropy_encode(
+    entropy_encode: Callable[[np.ndarray], bytes] | None,
+    config: EncodeConfig | None,
+) -> Callable[[np.ndarray], bytes]:
+    """Default bit-packer: the native C encoder (which itself falls back to
+    the Python oracle when the shared library is unavailable) — the
+    reference compiles its encoder into every app (core0 Makefile:145-164),
+    so the fast path is the default here too."""
+    if entropy_encode is not None:
+        return entropy_encode
+    if (config or EncodeConfig()).use_native_entropy:
+        from ..native import centropy
+
+        return centropy.encode_plane
+    return entropy_ref.encode_plane
+
+
+def _rgb_to_blocked_planes(
+    rgb: np.ndarray, scratch: dict | None = None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(H, W, 3) uint8 -> (y, cb, cr) blocked (B, 8, 8) uint8 planes.
+
+    Native one-pass OpenMP conversion when available (bit-exact with the
+    NumPy reference doubles — see centropy.c mj423_rgb_to_ycbcr_blocked);
+    NumPy chain + blocking otherwise.  With scratch, the returned planes
+    are reused (overwritten) by the next same-scratch call.
+    """
+    rgb = np.asarray(rgb, dtype=np.uint8)
+    native = centropy.rgb_to_ycbcr_blocked(rgb, scratch)
+    if native is not None:
+        return native
+    y, cb, cr = encode_ref.rgb_to_ycbcr_frame(rgb)
+    return raster_to_blocks(y), raster_to_blocks(cb), raster_to_blocks(cr)
+
+
+class FramePacker:
+    """One-frame-at-a-time candidate coding + smaller-wins packing.
+
+    The stateful back half of the encoder — quantize both candidates'
+    entropy codings, pick the smaller (forcing I at frame 0 and at least
+    every max_i_interval frames), emit the frame's final container bytes
+    (reference: mjpeg423_encoder.c:154-201) — factored to a push-style
+    object so the stored encoder (encode_quantized_frames) and the live
+    encoder (LiveEncoder) share one implementation.
+
+    State across calls: the previous frame's absolute quantized planes
+    (ping-pong contract: the caller may reuse the array it passed, but only
+    two calls later — pack() reads one frame back), the last I-frame
+    index, and the native packer's scratch workspace.
+    """
+
+    def __init__(
+        self,
+        max_i_interval: int | None = None,
+        entropy_encode: Callable[[np.ndarray], bytes] | None = None,
+        config: EncodeConfig | None = None,
+        exact_tail: bool = False,
+        profiler=None,
+        strict_range: bool = False,
+    ):
+        config = config or EncodeConfig()
+        self._prof = profiler or default_profiler
+        self.max_i_interval = (
+            config.max_i_interval if max_i_interval is None else max_i_interval
+        )
+        entropy_encode = _resolve_entropy_encode(entropy_encode, config)
+        self._use_native = (
+            entropy_encode is centropy.encode_plane
+            and centropy.native_available()
+        )
+        if exact_tail and not self._use_native:
+            if entropy_encode not in (
+                centropy.encode_plane, entropy_ref.encode_plane
+            ):
+                raise ValueError(
+                    "exact_tail requires the default entropy packers"
+                )
+            # Python oracle with the exact-tail writer (bit-identical to
+            # the native path; only the final partial byte differs from
+            # quirk mode).
+            def entropy_encode(c, _f=entropy_ref.encode_plane):
+                return _f(c, exact_tail=True)
+        self._entropy_encode = entropy_encode
+        self._exact_tail = exact_tail
+        self._strict_range = strict_range
+        self._scratch: dict = {}
+        self._prev_q3: np.ndarray | None = None
+        self._last_iframe = 0
+        self._fi = 0
+
+    def _raise_clamped(self):
+        raise ValueError(
+            f"frame {self._fi}: values exceed the VLI 11-bit range "
+            "(|v| > 2047) — the format clamps these (lossy); "
+            "refusing strict_range encode"
+        )
+
+    def pack(self, q3: np.ndarray):
+        """Pack one frame's absolute quantized planes (3, B, 64) int16.
+
+        Returns (is_iframe, packed) where packed is the frame's complete
+        container bytes — 16-byte header, winning candidate's three plane
+        bitstreams, 4-byte alignment pad (a uint8 ndarray on the native
+        path, bytes on the fallback; both buffer-protocol writable).
+        """
+        if self._use_native:
+            out = self._pack_native(q3)
+        else:
+            out = self._pack_fallback(q3)
+        self._prev_q3 = q3
+        self._fi += 1
+        return out
+
+    def _pack_native(self, q3):
+        # Select-then-pack with zero-copy frame assembly: exact candidate
+        # byte sizes come from a size-only symbol scan (no bit writer), the
+        # smaller-wins rule (mjpeg423_encoder.c:154-185) picks the frame
+        # type from sizes alone, and only the winning candidate is packed —
+        # directly into the frame's final container bytes (the tail-exact
+        # bit appender never stores outside a plane's span, so the 16-byte
+        # header and alignment pad written here are never clobbered).  The
+        # losing pack, the per-plane blobs, and the serialize-time join all
+        # disappear; sizes == pack lengths is enforced both by the packer
+        # (RuntimeError) and tests/test_native.py.
+        fi, prev_q3 = self._fi, self._prev_q3
+        with self._prof.time("encode/sizes"):
+            if self._strict_range:
+                sizes, clamped = centropy.candidate_sizes(
+                    q3, prev_q3, want_clamped=True
+                )
+            else:
+                sizes = centropy.candidate_sizes(q3, prev_q3)
+        size_i = sum(sizes[:3])
+        size_p = sum(sizes[3:]) if prev_q3 is not None else None
+        pick_i = (
+            fi == 0
+            or size_p is None
+            or size_i <= size_p
+            or fi - self._last_iframe >= self.max_i_interval
+        )
+        if self._strict_range and any(
+            clamped[:3] if pick_i else clamped[3:]
+        ):
+            self._raise_clamped()
+        psz = sizes[:3] if pick_i else sizes[3:]
+        raw = FRAME_HEADER_BYTES + psz[0] + psz[1] + psz[2]
+        frame_size = raw + (-raw) % 4
+        buf = np.empty(frame_size, np.uint8)
+        _U32x4.pack_into(
+            buf, 0, frame_size,
+            T.FRAME_TYPE_I if pick_i else T.FRAME_TYPE_P,
+            psz[0], psz[1],
+        )
+        buf[raw:] = 0  # 4-byte alignment pad (encoder.c:187-201)
+        offs = (
+            FRAME_HEADER_BYTES,
+            FRAME_HEADER_BYTES + psz[0],
+            FRAME_HEADER_BYTES + psz[0] + psz[1],
+        )
+        with self._prof.time("encode/pack"):
+            centropy.encode_candidates_into(
+                q3, None if pick_i else prev_q3, buf, offs, psz,
+                self._scratch, self._exact_tail, which=1 if pick_i else 2,
+            )
+        if pick_i:
+            self._last_iframe = fi
+        return pick_i, buf
+
+    def _pack_fallback(self, q3):
+        fi, prev_q3 = self._fi, self._prev_q3
+        entropy_encode = self._entropy_encode
+        bits_i: dict[str, bytes] = {}
+        bits_p: dict[str, bytes | None] = {}
+        clamp_i = clamp_p = False
+        for i, name in enumerate(("y", "cb", "cr")):
+            # Difference once; the clamp test and the entropy pack share
+            # the same tensors (recomputing them doubled the dominant
+            # numpy work of this fallback path).
+            di = encode_ref.diff_dc_i(q3[i])
+            dp = (
+                encode_ref.diff_p(q3[i], prev_q3[i])
+                if prev_q3 is not None else None
+            )
+            if self._strict_range:
+                clamp_i = clamp_i or int(np.abs(di).max(initial=0)) > 2047
+                if dp is not None:
+                    clamp_p = clamp_p or int(np.abs(dp).max(initial=0)) > 2047
+            bits_i[name] = entropy_encode(di)
+            bits_p[name] = entropy_encode(dp) if dp is not None else None
+
+        size_i = sum(len(b) for b in bits_i.values())
+        size_p = (
+            sum(len(b) for b in bits_p.values() if b is not None)
+            if prev_q3 is not None
+            else None
+        )
+        # Frame-type selection (reference: mjpeg423_encoder.c:155-157)
+        pick_i = (
+            fi == 0
+            or size_p is None
+            or size_i <= size_p
+            or fi - self._last_iframe >= self.max_i_interval
+        )
+        if self._strict_range and (clamp_i if pick_i else clamp_p):
+            self._raise_clamped()
+        if pick_i:
+            self._last_iframe = fi
+            fr = Frame(
+                T.FRAME_TYPE_I, bits_i["y"], bits_i["cb"], bits_i["cr"]
+            )
+        else:
+            fr = Frame(
+                T.FRAME_TYPE_P, bits_p["y"], bits_p["cb"], bits_p["cr"]  # type: ignore[arg-type]
+            )
+        return pick_i, fr.pack()
+
+
+def encode_quantized_frames(
+    q3_frames,
+    width: int,
+    height: int,
+    max_i_interval: int | None = None,
+    entropy_encode: Callable[[np.ndarray], bytes] | None = None,
+    config: EncodeConfig | None = None,
+    exact_tail: bool = False,
+    profiler=None,
+    strict_range: bool = False,
+) -> bytes:
+    """Pack absolute quantized planes into an .MPG container.
+
+    q3_frames: iterable of (3, B, 64) int16 arrays — per frame the ABSOLUTE
+    quantized Y/Cb/Cr planes (natural order, absolute per-block DC), i.e.
+    exactly the encoder's round(coef/quant) state.  This is the shared back
+    half of the encoder (candidate coding + smaller-wins frame-type
+    selection, reference mjpeg423_encoder.c:154-185); encode_frames feeds
+    it from RGB via FDCT, codec/transcode.py feeds it from an existing
+    stream's entropy-parsed amplitude state (lossless re-GOP).
+
+    A yielded array may be reused (ping-ponged) by the producer: only the
+    immediately previous frame is read back, never older ones.
+
+    exact_tail: write each plane's true final partial byte instead of the
+    reference encoder's 0x00 output_rest quirk (which silently drops up to
+    7 tail bits when the last block is dense).  Only valid with the default
+    packers; the transcoder passes True so re-GOP stays lossless on ALL
+    content.
+
+    strict_range: raise ValueError if any value of the CHOSEN candidate
+    exceeds the VLI's 11-bit range (|v| > 2047) — the format clamps such
+    values (reference encode_VLI, lossless_encode.c:121-138), which is
+    lossy.  Unreachable from the RGB encoder on valid input; the
+    transcoder passes True so a corrupt/extreme source stream fails
+    loudly instead of silently re-GOPping to different pixels.
+    """
+    packer = FramePacker(
+        max_i_interval, entropy_encode, config, exact_tail, profiler,
+        strict_range,
+    )
+    chunks: list = []
+    trailer: list[tuple[int, int]] = []
+    pos = FILE_HEADER_BYTES
+    nf = 0
+    for fi, q3 in enumerate(q3_frames):
+        nf = fi + 1
+        is_i, packed = packer.pack(q3)
+        if is_i:
+            trailer.append((fi, pos))
+        chunks.append(packed)
+        pos += len(packed)
+    header = FileHeader(
+        nf, width, height, len(trailer), pos - FILE_HEADER_BYTES
+    ).pack()
+    tr = b"".join(_U32x2.pack(i, p) for i, p in trailer)
+    return b"".join([header, *chunks, tr, b"\x00" * PAD512])
+
+
+def encode_frames(
+    frames_rgb: Sequence[np.ndarray],
+    max_i_interval: int | None = None,
+    entropy_encode: Callable[[np.ndarray], bytes] | None = None,
+    config: EncodeConfig | None = None,
+    profiler=None,
+) -> bytes:
+    """Encode RGB frames into an .MPG container byte string.
+
+    frames_rgb: sequence of (H, W, 3) uint8 arrays (R, G, B channel order).
+    max_i_interval: force an I-frame at least this often
+    (reference: mjpeg423_encoder.c:154-157 selection rule); defaults from
+    config (24, the reference's MAX_IFRAME_OFFSET).
+    entropy_encode: plane bit-packer override; the default is the native C
+    encoder (byte-identical to the Python oracle).
+    """
+    first = np.asarray(frames_rgb[0])
+    h, w = first.shape[:2]
+    if h % 8 or w % 8:
+        raise ValueError(f"dimensions must be multiples of 8, got {w}x{h}")
+
+    def quantized():
+        qz = _Quantizer(profiler)
+        for rgb in frames_rgb:
+            yield qz.quantize(rgb)
+
+    return encode_quantized_frames(
+        quantized(), w, h, max_i_interval, entropy_encode, config,
+        profiler=profiler,
+    )
+
+
+class _Quantizer:
+    """RGB -> absolute quantized planes, one frame at a time.
+
+    One workspace for the whole encode: fresh multi-MB buffers per frame
+    were measured 25-100x slower than reuse on this host (first-touch page
+    faults + THP compaction stalls).  q3 ping-pongs over two buffers
+    because the P-candidate reads the previous frame's planes (the
+    FramePacker / encode_quantized_frames contract — the reference's
+    prev/next DCACq buffer swap, mjpeg423_encoder.c:154-185).
+    """
+
+    def __init__(self, profiler=None):
+        self._prof = profiler or default_profiler
+        self._scratch: dict = {}
+        self._pair: list[np.ndarray | None] = [None, None]
+        self._fi = 0
+
+    def quantize(self, rgb: np.ndarray) -> np.ndarray:
+        """(H, W, 3) uint8 RGB -> (3, B, 64) int16 absolute quantized
+        planes.  The returned array is overwritten two calls later."""
+        with self._prof.time("encode/convert"):
+            yb, cbb, crb = _rgb_to_blocked_planes(rgb, self._scratch)
+        nb = yb.shape[0]
+        q3 = self._pair[self._fi % 2]
+        if q3 is None or q3.shape != (3, nb, 64):
+            q3 = np.empty((3, nb, 64), dtype=np.int16)
+            self._pair[self._fi % 2] = q3
+        with self._prof.time("encode/fdct"):
+            for i, (blocks, quant) in enumerate((
+                (yb, T.YQUANT64), (cbb, T.CQUANT64), (crb, T.CQUANT64)
+            )):
+                q = centropy.fdct_quant_blocks(blocks, quant, out=q3[i])
+                if q is None:  # NumPy oracle fallback
+                    coefs = encode_ref.fdct_blocks(blocks).reshape(-1, 64)
+                    q3[i] = encode_ref.quantize_blocks(coefs, quant)
+        self._fi += 1
+        return q3
+
+
+class LiveEncoder:
+    """Encode RGB frames into a byte sink as they arrive (live producer).
+
+    Writes the open-ended live header (num_frames = 0 sentinel, no trailer
+    — the runtime/live.py stream contract), then one complete container
+    frame per write_frame call, straight to the sink: a camera / screen
+    producer feeds any number of live consumers with O(1 frame) memory.
+
+    If the sink is seekable, finalize() appends the I-frame trailer + the
+    512-byte pad and back-patches the header — exactly the reference
+    encoder's end-of-encode fixup (reference: mjpeg423_encoder.c:204-225)
+    — turning the feed into a stored container byte-identical to
+    encode_frames() of the same input.  For pure streams (pipes/sockets)
+    finalize() is a no-op returning False; EOF at the frame boundary is
+    the end-of-stream marker.
+    """
+
+    def __init__(
+        self,
+        out,
+        width: int,
+        height: int,
+        max_i_interval: int | None = None,
+        entropy_encode: Callable[[np.ndarray], bytes] | None = None,
+        config: EncodeConfig | None = None,
+        profiler=None,
+    ):
+        if not width or not height or width % 8 or height % 8:
+            raise ValueError(
+                f"dimensions must be multiples of 8, got {width}x{height}"
+            )
+        self._out = out
+        self.width = width
+        self.height = height
+        self._quant = _Quantizer(profiler)
+        self._packer = FramePacker(
+            max_i_interval, entropy_encode, config, profiler=profiler
+        )
+        self._pos = FILE_HEADER_BYTES
+        self._trailer: list[tuple[int, int]] = []
+        self.frames_written = 0
+        self._finalized = False
+        self._did_patch = False
+        # The header's sink offset — finalize() must patch where the
+        # header actually landed, not offset 0 (the sink may hold prior
+        # content).  Trailer frame_positions stay container-relative
+        # (frame_position is an offset within the container per the
+        # format, mjpeg423_encoder.c:204-207).
+        try:
+            self._base = out.tell() if out.seekable() else 0
+        except (AttributeError, OSError):
+            self._base = 0
+        out.write(FileHeader(0, width, height, 0, 0).pack())
+
+    def write_frame(self, rgb: np.ndarray) -> None:
+        """Encode and emit one (H, W, 3) uint8 RGB frame."""
+        if self._finalized:
+            raise ValueError("LiveEncoder already finalized")
+        rgb = np.asarray(rgb, dtype=np.uint8)
+        if rgb.shape[:2] != (self.height, self.width):
+            raise ValueError(
+                f"frame is {rgb.shape[1]}x{rgb.shape[0]}, feed is "
+                f"{self.width}x{self.height}"
+            )
+        is_i, packed = self._packer.pack(self._quant.quantize(rgb))
+        if is_i:
+            self._trailer.append((self.frames_written, self._pos))
+        self._out.write(packed)
+        self._pos += len(packed)
+        self.frames_written += 1
+
+    def finalize(self) -> bool:
+        """Seekable sinks: write trailer + pad, back-patch the header
+        (the stored-container fixup).  Returns True if patched.
+        Idempotent — repeat calls return the first result unchanged."""
+        if self._finalized:
+            return self._did_patch
+        self._finalized = True
+        if not getattr(self._out, "seekable", lambda: False)():
+            return False
+        out = self._out
+        out.write(b"".join(_U32x2.pack(i, p) for i, p in self._trailer))
+        out.write(b"\x00" * PAD512)
+        out.seek(self._base)
+        out.write(FileHeader(
+            self.frames_written, self.width, self.height,
+            len(self._trailer), self._pos - FILE_HEADER_BYTES,
+        ).pack())
+        out.seek(0, 2)
+        self._did_patch = True
+        return True
+
 
 # Seconds the overlapped encoder waits for its producer thread to stop once
 # the encode has ended or failed.  A producer still alive after that is

@@ -144,6 +144,10 @@ def load() -> ctypes.CDLL:
                 ptr, ptr, ptr, i32, i32, i32, i32, ptr,
             ]
             lib.mj423_encode_window.restype = i32
+            lib.mj423_transform_coefmajor.argtypes = [
+                ptr, ptr, ptr, ptr, ctypes.c_longlong, i32, ptr,
+            ]
+            lib.mj423_transform_coefmajor.restype = i32
             lib.mj423_error_string.argtypes = [i32]
             lib.mj423_error_string.restype = ctypes.c_char_p
             lib.mj423_max_window.argtypes = []

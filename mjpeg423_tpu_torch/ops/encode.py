@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from mjpeg423_tpu.core import tables as T
+from ..core import tables as T
 
 from .transform import quant_tensors
 

@@ -81,7 +81,7 @@ def encode_window_fused(
     blocks_h * blocks_w, row-major; each block 8x8 flattened).
     Returns (3, W, B, 64) int16 ABSOLUTE quantized amplitudes (luma table
     for plane 0, chroma for planes 1 and 2), the input of the host packer
-    (mjpeg423_tpu.codec.encoder.encode_quantized_frames).
+    (codec.encoder.encode_quantized_frames).
 
     On a CUDA device this launches the kernel (asynchronously, on the
     current stream); on the CPU it runs encode_window_fused_ref.

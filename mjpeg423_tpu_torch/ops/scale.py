@@ -11,14 +11,13 @@ byte s of a word is (x >> s) & 0xFF (the arithmetic shift's sign bits are
 masked off), channel sums stay in int32, and the repacked word is built in
 int64 and narrowed to int32 before it is viewed as uint32 again.
 
-check_factor and downscale_raster_host (the NumPy oracle) are the JAX
-module's own: it imports only numpy.
+check_factor and downscale_raster_host (the NumPy oracle) are copied from
+mjpeg423_tpu/ops/scale.py at commit bfc8537.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
-
-from mjpeg423_tpu.ops.scale import check_factor, downscale_raster_host
 
 __all__ = [
     "check_factor", "downscale_blocked", "downscale_raster",
@@ -26,6 +25,33 @@ __all__ = [
 ]
 
 _SHIFTS = (0, 8, 16, 24)  # packed BGRA byte lanes
+
+
+def check_factor(f: int) -> int:
+    if f not in (1, 2, 4, 8):
+        raise ValueError(
+            f"scale must be 1, 2, 4 or 8 (boxes must divide the 8x8 "
+            f"block), got {f}"
+        )
+    return f
+
+
+def downscale_raster_host(x: np.ndarray, f: int) -> np.ndarray:
+    """NumPy oracle of downscale_raster (tests + host-side fallback)."""
+    check_factor(f)
+    if f == 1:
+        return x
+    w, h, wd = x.shape
+    x5 = x.reshape(w, h // f, f, wd // f, f)
+    half = (f * f) // 2
+    shift = 2 * (f.bit_length() - 1)
+    out = np.zeros((w, h // f, wd // f), np.uint32)
+    for s in _SHIFTS:
+        ch = ((x5 >> s) & np.uint32(0xFF)).sum(
+            axis=(2, 4), dtype=np.uint32
+        )
+        out |= ((ch + half) >> shift) << s
+    return out
 
 
 def _channel_sums(xi: torch.Tensor, dims: tuple[int, ...]) -> list[torch.Tensor]:

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from mjpeg423_tpu.core import tables as T
+from ..core import tables as T
 
 _I32 = torch.int32
 

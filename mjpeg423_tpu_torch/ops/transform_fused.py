@@ -14,20 +14,19 @@ version, decode_window_fused_ref, built from ops/transform.py, after the
 cm and i8 inputs are laid out block-major.  Nothing falls back from one to
 the other: any other device raises, and so does a failed build or launch.
 
-The codec has no weights.  Its state is the quant tables (shared from
-mjpeg423_tpu/core/tables.py) and the int16 coefficient carry, which
+The codec has no weights.  Its state is the quant tables (core/tables.py)
+and the int16 coefficient carry, which
 carry_from_jax / carry_to_numpy move between a JAX decode and this one and
 carry_to_cm / carry_from_cm between the two carry layouts.  to_cm and
-pack_amps_i8 are the JAX module's host-side layout helpers, copied here
-because that module imports jax.
+pack_amps_i8 are the JAX module's host-side layout helpers, copied here.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from mjpeg423_tpu.core import tables as T
-from mjpeg423_tpu.native import centropy
+from ..core import tables as T
+from ..native import centropy
 
 from . import _build, transform
 

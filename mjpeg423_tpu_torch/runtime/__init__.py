@@ -1,6 +1,6 @@
-from mjpeg423_tpu.utils.config import DecodeConfig
-from mjpeg423_tpu.utils.profile import Profiler
+from ..utils.config import DecodeConfig
+from ..utils.profile import Profiler
+from .pipeline import DecodedWindow, DecodePipeline, RecoveryLog
 
-from .pipeline import DecodePipeline
-
-__all__ = ["DecodeConfig", "DecodePipeline", "Profiler"]
+__all__ = ["DecodeConfig", "DecodedWindow", "DecodePipeline", "Profiler",
+           "RecoveryLog"]

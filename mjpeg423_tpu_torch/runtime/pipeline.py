@@ -1,19 +1,28 @@
-"""Single-device streaming decode on a torch device.
+"""Streaming decode pipeline on one torch device: parse stage, device
+transform, output.
 
-DecodePipeline here subclasses mjpeg423_tpu.runtime.pipeline.DecodePipeline
-and inherits its host half unchanged: container index, native entropy parse
-(block-major and int8-packed), window padding (_put_window), the output
-ring's drain, decode_resilient, decode_iframes and the array forms.  It
-overrides what touched jax: putting arrays on the device, the window step,
-the carry layouts, the downscale, draining frames back to the host and
-warmup.
+One class, DecodePipeline, the counterpart of
+mjpeg423_tpu/runtime/pipeline.py's.  Its host half is copied from that file
+at commit bfc8537 (DecodedWindow, RecoveryLog, _StageError, parse_window,
+_put_window, decode_iframes, the *_array(s) forms, _find_corrupt_frame,
+decode_resilient): container index, native entropy parse (block-major,
+coefficient-major and int8-packed), window padding, reassembly and the
+GOP-skip recovery.  What touched jax there is torch here: putting arrays on
+the device, the window step, the carry layouts, the downscale, draining
+frames back to the host and warmup.
 
-decode() and decode_streams() are the host logic the port carries itself.
-The inherited generators resolve the coefficient-major row fold through
-auto_rows_per_step, which imports mjpeg423_tpu/ops/transform_fused.py and
-with it jax, even for block-major streams.  The port's two generators share
-one window loop (_window_loop): parse look-ahead on a thread pool, the
-carry-layout switch, put, step, downscale and the output ring.
+  Stage A (host threads)  entropy parse: the native C batch decoder over
+      (frames x planes) byte ranges indexed straight into the container
+      buffer, at most a few windows ahead of the device.
+  Stage B (device)        one windowed decode step: dequant + temporal
+      recurrence + IDCT + colour in one kernel.  Windows of W frames carry
+      the int16 coefficient state of their last frame forward, so window
+      boundaries need no GOP alignment.
+  Stage C (host)          device->host transfer, blocked->raster, delivery.
+
+decode() and decode_streams() share one window loop (_window_loop): parse
+look-ahead on a thread pool, the carry-layout switch, put, step, downscale
+and the output ring.
 
 Every window runs one of three kernels, chosen by the layout its parse
 produced (ops/transform_fused -> csrc/decode_window.cu): block-major K1
@@ -22,11 +31,13 @@ produced (ops/transform_fused -> csrc/decode_window.cu): block-major K1
 when the native cm parse is unavailable, when a window's AC amplitudes
 exceed int8, and in every seam window of decode_streams.  On the CPU, which
 must be asked for by name, the same layouts go through the plain PyTorch
-versions.  Mesh-sharded decode (mesh=) is not ported yet and raises.
+versions.  Mesh-sharded streaming (mesh=) is not ported yet and raises;
+parallel.decode_stream_sharded decodes a whole stream over a mesh.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Sequence
@@ -34,19 +45,58 @@ from typing import Callable, Iterator, Sequence
 import numpy as np
 import torch
 
-from mjpeg423_tpu.core import format as fmt
-from mjpeg423_tpu.native import centropy
-from mjpeg423_tpu.runtime import pipeline as _base
-from mjpeg423_tpu.runtime.pipeline import DecodedWindow
-from mjpeg423_tpu.utils.config import DecodeConfig
-
+from ..core import format as fmt
+from ..native import centropy
 from ..ops import resolve_device, scale as _scale, transform_fused
+from ..ops.parse import (  # CM_FOLD is re-exported: the step folds by it
+    CM_FOLD, parse_block_major, parse_coef_major, plane_spans,
+)
+from ..utils.config import DecodeConfig
+from ..utils.profile import Profiler, default_profiler
 
-# Block-row fold k of the coefficient-major parse (row_blocks = k * bw).
-# The JAX package picks k with auto_rows_per_step, a TPU VMEM and lane
-# heuristic; K2's thread blocks take 32 consecutive blocks whatever the
-# fold, so the port parses with k = 1.
-CM_FOLD = 1
+
+class _StageError:
+    """Producer-thread exception carried across a stage queue.
+
+    The reference at least spins loudly on a failed read
+    (assert_persistent, core1/main.c:154); a silent truncated decode would
+    be worse, so parse failures re-raise in the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+@dataclasses.dataclass
+class DecodedWindow:
+    """A batch of decoded frames: [start, start + count) of the stream."""
+
+    start_frame: int
+    count: int
+    frames: np.ndarray  # (W, H, W) uint32 packed BGRA; rows beyond count are pad
+
+
+@dataclasses.dataclass
+class RecoveryLog:
+    """decode_resilient's account of what was skipped and where it resynced.
+
+    skipped: [lo, hi) frame ranges dropped (corrupt frame up to the next
+    I-frame — P-frames after a corrupt frame depend on its state, so the
+    recovery unit is the GOP tail, SURVEY §5.3).  Sorted and merged once
+    the generator completes.
+    """
+
+    skipped: list[tuple[int, int]] = dataclasses.field(default_factory=list)
+    resyncs: int = 0
+    # Live resyncs (runtime.live decode_live(resync=True)): one entry per
+    # recovery, (delivery index where the feed resumed at an I-frame,
+    # bytes discarded while scanning).  Frames lost inside the gap are
+    # unknowable without a trailer, so live recovery accounts BYTES, not
+    # frame ranges.
+    gaps: list[tuple[int, int]] = dataclasses.field(default_factory=list)
+
+    @property
+    def frames_skipped(self) -> int:
+        return sum(hi - lo for lo, hi in self.skipped)
 
 
 def _device_step_factory(blocks_h: int, blocks_w: int, raster_on_device: bool):
@@ -81,17 +131,23 @@ def _layout(amps) -> str:
     return "cm" if isinstance(amps, tuple) and amps[0] == "cm" else "bm"
 
 
-class DecodePipeline(_base.DecodePipeline):
+class DecodePipeline:
     """End-to-end streaming decoder for MJPEG423 containers on one torch
     device (default ``"cuda"``; pass ``device="cpu"`` for the plain path)."""
 
-    def __init__(self, config: DecodeConfig | None = None, profiler=None,
-                 mesh=None, device="cuda"):
-        cfg = config or DecodeConfig()
+    def __init__(
+        self,
+        config: DecodeConfig | None = None,
+        profiler: Profiler | None = None,
+        mesh=None,
+        device="cuda",
+    ):
+        self.config = config or DecodeConfig()
         if mesh is not None:
             raise NotImplementedError("mesh-sharded decode is not ported yet")
-        dev = resolve_device(device, cfg.use_pallas)
-        super().__init__(cfg, profiler, None, dev)
+        self.profiler = profiler or default_profiler
+        self.mesh = None
+        self.device = resolve_device(device, self.config.use_pallas)
 
     def _put(self, x):
         """Host array -> this pipeline's device."""
@@ -99,12 +155,18 @@ class DecodePipeline(_base.DecodePipeline):
             self.device, non_blocking=True
         )
 
-    def _use_pallas(self) -> bool:
-        return self.device.type == "cuda"
+    # ----- Stage A: host entropy parse ---------------------------------
+
+    def _native_parse(self) -> bool:
+        """Whether windows parse through the native batch decoder."""
+        return self.config.use_native_entropy and centropy.native_available()
 
     def _want_cm(self, ignore_i8: bool = False) -> bool:
-        """The JAX predicate without its device term: the plain version
-        consumes every layout, so the CPU parses what the card does."""
+        """THE coefficient-major predicate: whether parse_window emits (and
+        the step consumes) the cm layout; warmup() and both generators call
+        this one definition.  It is the JAX predicate without its device
+        term: the plain version consumes every layout, so the CPU parses
+        what the card does."""
         cfg = self.config
         return (
             cfg.coef_major is True
@@ -113,32 +175,79 @@ class DecodePipeline(_base.DecodePipeline):
             and cfg.use_native_entropy and centropy.native_available()
         )
 
-    def parse_window(self, data, index, start, count, want_packed=False,
-                     want_cm=False, frames=None):
-        """The inherited parse, with the coefficient-major branch at the
-        port's fold (CM_FOLD).  A None from decode_batch_cm falls back to
-        the inherited block-major (or int8) parse."""
-        if want_cm:
-            fsel = (np.arange(start, start + count) if frames is None
-                    else np.asarray(frames))
-            hdr = index.header
-            bh, bw = hdr.blocks_h, hdr.blocks_w
-            is_p = np.broadcast_to(
-                index.frame_type[fsel] != 0, (3, len(fsel))
-            ).reshape(-1)
-            with self.profiler.time("parse/window"):
-                cm = centropy.decode_batch_cm(
-                    data, index.plane_off[:, fsel].reshape(-1),
-                    index.plane_len[:, fsel].reshape(-1), is_p,
-                    hdr.blocks_per_plane, CM_FOLD * bw,
+    def parse_layout(self) -> str:
+        """Resolved host-parse emission layout for this config: "cm" or
+        "bm" (int8 packing, when enabled AND the amplitudes fit, is a
+        runtime refinement of "bm")."""
+        return "cm" if self._want_cm() else "bm"
+
+    def parse_window(
+        self, data: bytes, index: fmt.FrameIndex, start: int, count: int,
+        want_packed: bool = False,
+        want_cm: bool = False,
+        frames: np.ndarray | None = None,
+    ):
+        """Entropy-decode frames [start, start+count).
+
+        frames: an explicit array of frame indices overrides start/count —
+        the windows need not be contiguous (decode_iframes batches GOP
+        heads this way).
+
+        Returns (3, count, B, 64) int16 amplitudes; or, with want_cm, the
+        coefficient-major ("cm", (3, count, bh/k, 64, k*bw) int16) at the
+        port's fold k = CM_FOLD; or — when want_packed and every AC
+        amplitude fits int8 — the compressed ("i8", dc (3, count, B) int16,
+        ac (3, count, B, 64) int8) consumed by the i8 kernel (half the
+        host->device bytes; the native decoder emits it directly and
+        signals fallback when a stream needs the full range).
+        """
+        if frames is None:
+            fsel = np.arange(start, start + count)
+        else:
+            fsel = np.asarray(frames)
+            count = len(fsel)
+        nb = index.header.blocks_per_plane
+        spec = self.config.spec_segments
+        with self.profiler.time("parse/window"):
+            if spec > 1 and centropy.native_available():
+                # Latency mode: speculative intra-plane parallelism (each
+                # plane split across `spec` workers; see centropy.c).
+                out = np.empty((3, count, nb, 64), dtype=np.int16)
+                for p in range(3):
+                    for i in range(count):
+                        fi = int(fsel[i])
+                        o = int(index.plane_off[p, fi])
+                        l = int(index.plane_len[p, fi])
+                        out[p, i] = centropy.decode_plane_spec(
+                            data[o:o + l], nb,
+                            bool(index.frame_type[fi]), spec,
+                        )
+                self.profiler.probe("parse/spec_windows").add(1)
+                return out
+            native = self._native_parse()
+            if native and want_cm:
+                cm = parse_coef_major(data, index, fsel)
+                if cm is not None:
+                    self.profiler.probe("parse/cm_windows").add(1)
+                    return ("cm", cm)
+            if native and want_packed:
+                packed = centropy.decode_batch_i8(
+                    data, *plane_spans(index, fsel), nb
                 )
-            if cm is not None:
-                self.profiler.probe("parse/cm_windows").add(1)
-                return ("cm", cm.reshape(
-                    3, len(fsel), bh // CM_FOLD, 64, CM_FOLD * bw
-                ))
-        return super().parse_window(data, index, start, count, want_packed,
-                                    False, frames)
+                if packed is not None:
+                    dc, ac = packed
+                    self.profiler.probe("parse/i8_windows").add(1)
+                    return (
+                        "i8",
+                        dc.reshape(3, count, nb),
+                        ac.reshape(3, count, nb, 64),
+                    )
+            return parse_block_major(data, index, fsel, native=native)
+
+    # ----- Stage B: device step ----------------------------------------
+
+    def _use_pallas(self) -> bool:
+        return self.device.type == "cuda"
 
     def _get_step(self, blocks_h: int, blocks_w: int):
         return _device_step_factory(
@@ -147,7 +256,9 @@ class DecodePipeline(_base.DecodePipeline):
 
     def _carry_cast(self, carry, to_tag, blocks_h, blocks_w, kk):
         """The carry between block-major (3, B, 64) and coefficient-major
-        (3, bh/kk, 64, kk*bw), on its device."""
+        (3, bh/kk, 64, kk*bw), on its device.  Needed when parse_window
+        falls back to another layout mid-stream, so that resumed state
+        stays exact."""
         if to_tag == "cm":
             return transform_fused.carry_to_cm(carry, blocks_h, blocks_w, kk)
         return transform_fused.carry_from_cm(carry, blocks_h, blocks_w, kk)
@@ -161,6 +272,7 @@ class DecodePipeline(_base.DecodePipeline):
 
     def _to_raster(self, host: np.ndarray, blocks_h: int,
                    blocks_w: int) -> np.ndarray:
+        """Drain-side raster conversion when frames arrive blocked."""
         if host.ndim == 3:
             return host
         return transform_fused.blocked_to_raster_host(host, blocks_h, blocks_w)
@@ -176,6 +288,34 @@ class DecodePipeline(_base.DecodePipeline):
             return _scale.downscale_raster(frames, f)
 
         return downscale
+
+    def _put_window(self, amps, c: int, w: int, nb: int):
+        """Pad a parsed window to the window length (zero deltas repeat
+        the last frame; padded rows are dropped at drain) and put it on the
+        device, preserving the parse layout tag ("cm"/"i8"/block-major)."""
+        if isinstance(amps, tuple) and amps[0] == "cm":
+            cm = amps[1]
+            if c < w:
+                pcm = np.zeros((3, w) + cm.shape[2:], dtype=np.int16)
+                pcm[:, :c] = cm
+                cm = pcm
+            return ("cm", self._put(cm))
+        if isinstance(amps, tuple):  # packed ("i8", dc, ac8)
+            _, dc, ac = amps
+            if c < w:
+                pdc = np.zeros((3, w, nb), dtype=np.int16)
+                pac = np.zeros((3, w, nb, 64), dtype=np.int8)
+                pdc[:, :c] = dc
+                pac[:, :c] = ac
+                dc, ac = pdc, pac
+            return ("i8", self._put(dc), self._put(ac))
+        if c < w:
+            pad = np.zeros((3, w, nb, 64), dtype=np.int16)
+            pad[:, :c] = amps
+            amps = pad
+        return self._put(amps)
+
+    # ----- Full pipeline ------------------------------------------------
 
     def warmup(self, width: int, height: int) -> None:
         """Build the kernels (first use) and run one zero window through
@@ -288,7 +428,9 @@ class DecodePipeline(_base.DecodePipeline):
         and delivers the first window before any other; scale (1, 2, 4 or
         8) box-downscales each window on the device before transfer;
         device_resident yields the device tensors (blocked layout unless
-        raster_on_device or scale, rows beyond .count are pad).
+        raster_on_device or scale, rows beyond .count are pad).  _index: a
+        prebuilt FrameIndex overriding the container chain walk
+        (decode_resilient passes the trailer-resynced index).
         """
         cfg = self.config
         latency_first = cfg.latency_mode if latency is None else latency
@@ -323,6 +465,26 @@ class DecodePipeline(_base.DecodePipeline):
                     return
         finally:
             wins.close()
+
+    def decode_iframes(
+        self, data: bytes, stop: Callable[[], bool] | None = None,
+        scale: int = 1,
+    ) -> Iterator[tuple[int, np.ndarray]]:
+        """Decode ONLY the stream's I-frames (thumbnail / preview strip).
+
+        Every I-frame resets all decoder state (lossless_decode.c:76-78),
+        so GOP heads decode with zero carry and batch into full windows —
+        a whole archive's preview costs only its I-frame bitstreams (the
+        trailer indexes them; the same property the reference exploits for
+        seek, playback.c:136-152).  Yields (frame_index, (H, W) uint32
+        packed BGRA) in stream order.  Thin wrapper over
+        decode_streams([data], iframes_only=True); thumbnail FARMS pass
+        many archives to decode_streams directly.
+        """
+        for _si, fi, frame in self.decode_streams(
+            [data], stop=stop, iframes_only=True, scale=scale
+        ):
+            yield fi, frame
 
     def decode_streams(
         self,
@@ -406,6 +568,33 @@ class DecodePipeline(_base.DecodePipeline):
         finally:
             wins.close()
 
+    def decode_streams_arrays(
+        self, datas: Sequence[bytes], scale: int = 1,
+    ) -> list[np.ndarray]:
+        """decode_streams, reassembled into one (F, H, W) array per clip."""
+        per: dict[int, dict[int, np.ndarray]] = {}
+        for si, fi, frame in self.decode_streams(datas, scale=scale):
+            per.setdefault(si, {})[fi] = frame
+        out = []
+        for si in range(len(datas)):
+            d = per.get(si, {})
+            out.append(
+                np.stack([d[k] for k in sorted(d)])
+                if d else np.zeros((0, 0, 0), np.uint32)
+            )
+        return out
+
+    def decode_iframes_array(
+        self, data: bytes, scale: int = 1,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """All I-frames at once: (indices (K,), frames (K, H, W) uint32)."""
+        pairs = list(self.decode_iframes(data, scale=scale))
+        if not pairs:
+            return (np.zeros(0, np.int64),
+                    np.zeros((0, 0, 0), dtype=np.uint32))
+        idx = np.array([i for i, _ in pairs], dtype=np.int64)
+        return idx, np.stack([f for _, f in pairs])
+
     def _host_frames(self, frames, blocks_h: int, blocks_w: int) -> np.ndarray:
         """A window's device frames -> host raster frames (rows beyond the
         window's count included)."""
@@ -425,5 +614,180 @@ class DecodePipeline(_base.DecodePipeline):
         return DecodedWindow(s, c, self._host_frames(frames, blocks_h,
                                                      blocks_w)[:c])
 
-    def _decode_mesh(self, *args, **kwargs):
-        raise NotImplementedError("mesh-sharded decode is not ported yet")
+    def decode_array(self, data: bytes, **kw) -> np.ndarray:
+        """Decode fully into one (F, H, W) uint32 array, reassembled by
+        start_frame index."""
+        if kw.get("device_resident"):
+            raise ValueError(
+                "decode_array assembles HOST raster frames; consume "
+                "device-resident windows from decode(device_resident=True) "
+                "directly (blocked layout, rows beyond .count are pad)"
+            )
+        wins = list(self.decode(data, **kw))
+        if not wins:
+            return np.zeros((0, 0, 0), dtype=np.uint32)
+        lo = min(w.start_frame for w in wins)
+        hi = max(w.start_frame + w.count for w in wins)
+        out = np.empty(
+            (hi - lo,) + wins[0].frames.shape[1:], wins[0].frames.dtype
+        )
+        for w in wins:
+            out[w.start_frame - lo:w.start_frame - lo + w.count] = w.frames
+        return out
+
+    # ----- Corruption-resilient decode (GOP skip-and-resync) -------------
+
+    def _find_corrupt_frame(
+        self, data: bytes, index: fmt.FrameIndex, lo: int, hi: int
+    ) -> int | None:
+        """First frame in [lo, hi) whose entropy parse raises, else None."""
+        for f in range(lo, hi):
+            try:
+                self.parse_window(data, index, f, 1, False, False)
+            except ValueError:
+                return f
+        return None
+
+    def decode_resilient(
+        self,
+        data: bytes,
+        *,
+        stop: Callable[[], bool] | None = None,
+        device_resident: bool = False,
+        scale: int = 1,
+        recovery: RecoveryLog | None = None,
+    ) -> Iterator[DecodedWindow]:
+        """Decode, skipping corrupt GOP tails instead of raising.
+
+        The strict paths treat any corruption as fatal (a silent truncated
+        decode is worse than an error).  A serving fleet replaying a damaged
+        archive wants the third option: deliver every decodable frame, drop
+        [corrupt_frame, next_I) — P-frames after the damage depend on its
+        state, and every I-frame rebuilds all of it (reference:
+        lossless_decode.c:76-78) — and resync at the next trailer I-frame,
+        exactly the reference's seek machinery (playback.c:136-152) driven
+        by damage instead of the user.  Covers both corruption classes:
+        broken frame_size chains (trailer-resynced index,
+        format.index_frames_resilient) and corrupt plane bitstreams (parse
+        failure -> per-frame probe -> GOP-tail skip).
+
+        Pass a RecoveryLog to observe what was lost; it is finalized
+        (sorted, adjacent ranges merged) when the generator completes.
+        Frames inside skipped ranges are never yielded — consumers key on
+        DecodedWindow.start_frame as always.  Undetectable corruption
+        (bit flips that still parse) is out of scope, as it is for the
+        reference: the format carries no checksums.
+        """
+        rec = recovery if recovery is not None else RecoveryLog()
+        index, bad = fmt.index_frames_resilient(data)
+        rec.skipped.extend(bad)
+        rec.resyncs += len(bad)
+        nf = index.num_frames
+        is_i = index.is_iframe
+        spans: list[tuple[int, int]] = []
+        pos = 0
+        for lo, hi in bad:
+            if pos < lo:
+                spans.append((pos, lo))
+            pos = hi
+        if pos < nf:
+            spans.append((pos, nf))
+        try:
+            for lo, hi in spans:
+                if not is_i[lo]:
+                    # A span must start at an I-frame: prior coefficient
+                    # state is gone (resynced spans start at trailer
+                    # I-frames; this guards a corrupt frame 0 / lying
+                    # trailer).
+                    nz = np.flatnonzero(is_i[lo:hi])
+                    if nz.size == 0:
+                        rec.skipped.append((lo, hi))
+                        continue
+                    s2 = lo + int(nz[0])
+                    rec.skipped.append((lo, s2))
+                    lo = s2
+                cur = lo
+                while cur < hi:
+                    delivered = cur
+                    try:
+                        for win in self.decode(
+                            data, start_frame=cur, stop=stop, end_frame=hi,
+                            device_resident=device_resident, scale=scale,
+                            _index=index,
+                        ):
+                            yield win
+                            delivered = win.start_frame + win.count
+                            if stop is not None and stop():
+                                return
+                        cur = hi
+                    except ValueError:
+                        f = self._find_corrupt_frame(
+                            data, index, delivered, hi
+                        )
+                        if f is None:
+                            # Not a localizable data error (bad config,
+                            # geometry, device failure): resilience does
+                            # not paper over those.
+                            raise
+                        rec.resyncs += 1
+                        if f > delivered:
+                            # Deliver the good prefix [delivered, f).  The
+                            # failed attempt lost its in-flight output ring,
+                            # so re-decode from the I-frame at/before
+                            # `delivered` and trim the head.
+                            nz = np.flatnonzero(is_i[lo:delivered + 1])
+                            prev_i = lo + int(nz[-1])
+                            for win in self.decode(
+                                data, start_frame=prev_i, end_frame=f,
+                                device_resident=device_resident, scale=scale,
+                                _index=index,
+                            ):
+                                k = max(0, delivered - win.start_frame)
+                                if k >= win.count:
+                                    continue
+                                if k:
+                                    win = DecodedWindow(
+                                        win.start_frame + k, win.count - k,
+                                        win.frames[k:],
+                                    )
+                                yield win
+                                if stop is not None and stop():
+                                    return
+                        nz = np.flatnonzero(is_i[f + 1:hi])
+                        nxt = f + 1 + int(nz[0]) if nz.size else hi
+                        rec.skipped.append((f, nxt))
+                        cur = nxt
+        finally:
+            rec.skipped.sort()
+            merged: list[tuple[int, int]] = []
+            for lo2, hi2 in rec.skipped:
+                if merged and lo2 <= merged[-1][1]:
+                    merged[-1] = (merged[-1][0], max(merged[-1][1], hi2))
+                else:
+                    merged.append((lo2, hi2))
+            rec.skipped[:] = merged
+
+    def decode_resilient_array(
+        self, data: bytes, fill: int = 0, **kw
+    ) -> tuple[np.ndarray, RecoveryLog]:
+        """decode_resilient into one (F, H, W) uint32 array + RecoveryLog.
+
+        Skipped frames hold `fill` (default 0); F is the header's
+        num_frames, so frame indices stay aligned with the container.
+        """
+        if kw.get("device_resident"):
+            raise ValueError(
+                "decode_resilient_array assembles HOST raster frames; "
+                "consume device-resident windows from decode_resilient("
+                "device_resident=True) directly"
+            )
+        rec = kw.pop("recovery", None) or RecoveryLog()
+        hdr = fmt.FileHeader.unpack(data)
+        f = kw.get("scale", 1)
+        out = np.full(
+            (hdr.num_frames, hdr.height // f, hdr.width // f),
+            fill, dtype=np.uint32,
+        )
+        for win in self.decode_resilient(data, recovery=rec, **kw):
+            out[win.start_frame:win.start_frame + win.count] = win.frames
+        return out, rec

@@ -1,9 +1,14 @@
-"""The port never reaches jax.
+"""The port never reaches jax, nor the JAX package.
 
-tests/conftest.py imports jax into every test process, so each check runs
-in a fresh interpreter where ``sys.modules["jax"] = None`` makes any import
-of jax (or of a module that needs it) raise.
+A static check walks every source file of the port and chip_smoke.py for
+imports of ``mjpeg423_tpu`` or ``jax``.  tests/conftest.py imports jax into
+every test process, so the dynamic checks run in a fresh interpreter where
+``sys.modules["jax"] = None`` makes any import of jax (or of a module that
+needs it) raise, and end by asserting that no ``mjpeg423_tpu`` module was
+loaded.  The comparisons with the JAX package's decoder and encoder are in
+the parity files (tests/test_torch_pipeline.py, test_torch_encoder.py).
 """
+import ast
 import pathlib
 import subprocess
 import sys
@@ -28,9 +33,19 @@ SCRIPTS = {
         import mjpeg423_tpu_torch.ops.encode
         import mjpeg423_tpu_torch.ops.encode_fused
         import mjpeg423_tpu_torch.ops.scale
+        import mjpeg423_tpu_torch.ops.transform_coefmajor
+        import mjpeg423_tpu_torch.ops.entropy_ref
+        import mjpeg423_tpu_torch.ops.encode_ref
+        import mjpeg423_tpu_torch.ops.transform_ref
+        import mjpeg423_tpu_torch.core.format
+        import mjpeg423_tpu_torch.core.tables
+        import mjpeg423_tpu_torch.native.centropy
+        import mjpeg423_tpu_torch.utils
         import mjpeg423_tpu_torch.codec
         import mjpeg423_tpu_torch.codec.encoder
         import mjpeg423_tpu_torch.runtime
+        import mjpeg423_tpu_torch.parallel
+        import mjpeg423_tpu_torch.parallel.multihost
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "triton")
                and sys.modules[m] is not None]
@@ -39,10 +54,9 @@ SCRIPTS = {
         assert _build._LIB is None  # nothing is built at import
     """,
     "decode_array": """
-        from mjpeg423_tpu.codec.decoder import decode_stream_array
-        from mjpeg423_tpu.utils.config import DecodeConfig
         from mjpeg423_tpu_torch.codec import encode_frames
-        from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
+        from mjpeg423_tpu_torch.runtime import (
+            DecodeConfig, DecodePipeline, Profiler)
         rng = np.random.default_rng(5)
         base = rng.integers(0, 256, (16, 24, 3))
         frames = []
@@ -55,16 +69,18 @@ SCRIPTS = {
                               profiler=Profiler())
         pipe.warmup(24, 16)
         got = pipe.decode_array(data)
-        assert np.array_equal(got, decode_stream_array(data))
+        assert got.shape == (5, 16, 24) and got.dtype == np.uint32
+        whole = DecodePipeline(DecodeConfig(frames_per_batch=20),
+                               device="cpu").decode_array(data)
+        assert np.array_equal(got, whole)  # the carry crosses window seams
         res, rec = pipe.decode_resilient_array(data)
         assert np.array_equal(res, got) and rec.skipped == []
     """,
     "layouts_streams_scale": """
-        from mjpeg423_tpu.codec.decoder import decode_stream_array
-        from mjpeg423_tpu.utils.config import DecodeConfig
         from mjpeg423_tpu_torch.codec import encode_frames
         from mjpeg423_tpu_torch.ops.scale import downscale_raster_host
-        from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
+        from mjpeg423_tpu_torch.runtime import (
+            DecodeConfig, DecodePipeline, Profiler)
         rng = np.random.default_rng(7)
         base = rng.integers(0, 256, (16, 24, 3))
         frames = []
@@ -73,7 +89,7 @@ SCRIPTS = {
             f[t:t + 8, 2 * t:2 * t + 8] = 255
             frames.append(f.astype(np.uint8))
         data = encode_frames(frames, max_i_interval=3)
-        want = decode_stream_array(data)
+        want = DecodePipeline(device="cpu").decode_array(data)
         for cfg in (dict(coef_major=True), dict(pack_i8=True)):
             prof = Profiler()
             pipe = DecodePipeline(DecodeConfig(frames_per_batch=2, **cfg),
@@ -89,8 +105,8 @@ SCRIPTS = {
             assert np.array_equal(thumbs, downscale_raster_host(want, 4)[idx])
     """,
     "encode_frames_device": """
-        from mjpeg423_tpu.utils.config import EncodeConfig
-        from mjpeg423_tpu_torch.codec import encode_frames, encode_frames_device
+        from mjpeg423_tpu_torch.codec import (
+            EncodeConfig, encode_frames, encode_frames_device)
         rng = np.random.default_rng(6)
         frames = [rng.integers(0, 256, (16, 24, 3)).astype(np.uint8)
                   for _ in range(5)]
@@ -102,12 +118,84 @@ SCRIPTS = {
                                        device="cpu")
             assert got == want, overlap
     """,
+    "decode_stream_sharded": """
+        from mjpeg423_tpu_torch.codec import encode_frames
+        from mjpeg423_tpu_torch.ops import transform_coefmajor as tc
+        from mjpeg423_tpu_torch.parallel import (
+            decode_stream_sharded, make_mesh)
+        from mjpeg423_tpu_torch.runtime import DecodePipeline
+        rng = np.random.default_rng(8)
+        base = rng.integers(0, 256, (16, 24, 3))
+        frames = []
+        for t in range(7):
+            f = base.copy()
+            f[t:t + 8, 2 * t:2 * t + 8] = 255
+            frames.append(f.astype(np.uint8))
+        data = encode_frames(frames, max_i_interval=3)
+        want = DecodePipeline(device="cpu").decode_array(data)
+        for shape in ((4, 1), (2, 2)):
+            mesh = make_mesh(*shape, devices=["cpu"] * 4)
+            for aligned in (False, True, None):
+                got = decode_stream_sharded(data, mesh, gop_aligned=aligned,
+                                            use_pallas=True)
+                assert np.array_equal(got, want), (shape, aligned)
+        assert tc.LAUNCHES_K5 == 0  # CPU tensors take the plain version
+    """,
 }
+
+
+EPILOGUE = """
+bad = [m for m in sys.modules if m.split(".")[0] == "mjpeg423_tpu"]
+assert not bad, bad
+print('OK')
+"""
+
+
+def _port_sources():
+    files = sorted((ROOT / "mjpeg423_tpu_torch").rglob("*.py"))
+    assert len(files) > 20
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """No import statement (absolute, relative beyond the package, or an
+    importlib call with a literal name) names mjpeg423_tpu or jax."""
+    banned = {"mjpeg423_tpu", "jax", "jaxlib"}
+    found = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif (isinstance(node, ast.Call) and node.args
+                  and isinstance(node.args[0], ast.Constant)
+                  and isinstance(node.args[0].value, str)
+                  and getattr(node.func, "attr", getattr(node.func, "id", ""))
+                  in ("import_module", "__import__")):
+                names = [node.args[0].value]
+            for name in names:
+                if name.split(".")[0] in banned:
+                    found.append(f"{path.relative_to(ROOT)}:{node.lineno} {name}")
+    assert not found, found
+
+
+def test_pipeline_has_no_base_in_the_jax_package():
+    from mjpeg423_tpu_torch.runtime import DecodePipeline
+
+    assert [c.__module__.split(".")[0] for c in DecodePipeline.__mro__] == [
+        "mjpeg423_tpu_torch", "builtins"
+    ]
+    src = (ROOT / "mjpeg423_tpu_torch/runtime/pipeline.py").read_text()
+    assert src.count("    def decode(") == 1
+    assert src.count("    def decode_streams(") == 1
 
 
 @pytest.mark.parametrize("name", list(SCRIPTS))
 def test_port_runs_with_jax_blocked(name):
-    code = PRELUDE + textwrap.dedent(SCRIPTS[name]) + "\nprint('OK')\n"
+    code = PRELUDE + textwrap.dedent(SCRIPTS[name]) + EPILOGUE
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
         text=True, timeout=300,

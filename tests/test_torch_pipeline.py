@@ -21,6 +21,7 @@ from mjpeg423_tpu.core.format import Frame, serialize_file
 from mjpeg423_tpu.native import centropy
 from mjpeg423_tpu.ops import entropy_ref
 from mjpeg423_tpu.utils.config import DecodeConfig
+from mjpeg423_tpu_torch.native import centropy as port_centropy
 from mjpeg423_tpu_torch.ops import transform_fused as tf
 from mjpeg423_tpu_torch.ops.scale import downscale_raster_host
 from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
@@ -286,14 +287,15 @@ def test_cm_carry_switches_layout_mid_stream(stream, monkeypatch):
     for it and bm -> cm after it, and the stream decodes exactly."""
     data, want = stream
     index = fmt.index_frames(data)
-    real = centropy.decode_batch_cm
+    real = port_centropy.decode_batch_cm
 
     def decode_batch_cm(data, offs, lens, *args):
         if offs[0] == index.plane_off[0, 3]:  # window 1 starts at frame 3
             return None
         return real(data, offs, lens, *args)
 
-    monkeypatch.setattr(centropy, "decode_batch_cm", decode_batch_cm)
+    # The port parses with its own copy of the native codec.
+    monkeypatch.setattr(port_centropy, "decode_batch_cm", decode_batch_cm)
     prof = Profiler()
     pipe = DecodePipeline(DecodeConfig(frames_per_batch=3, coef_major=True),
                           device="cpu", profiler=prof)
@@ -447,6 +449,32 @@ def test_decode_resilient_packed_i8_matches_jax(jax_runtime, stream):
 def test_bad_device_settings_refuse(kw, exc):
     with pytest.raises(exc):
         DecodePipeline(**kw)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+def test_parse_functions_match_jax_parse_window(jax_runtime, stream, native):
+    """ops/parse.py, which the pipeline and the sharded decode share, against
+    the JAX pipeline's parse_window on a non-contiguous frame set."""
+    from mjpeg423_tpu_torch.ops import parse
+
+    data, _ = stream
+    fsel = np.array([0, 3, 4, 9])
+    jindex = fmt.index_frames(data)
+    jpipe = jax_runtime.DecodePipeline(
+        DecodeConfig(use_native_entropy=native, use_pallas=False)
+    )
+    want = jpipe.parse_window(data, jindex, 0, 0, frames=fsel)
+    index = parse.fmt.index_frames(data)
+    got = parse.parse_block_major(data, index, fsel, native=native)
+    assert got.dtype == np.int16 and got.shape == (3, 4, 24, 64)
+    np.testing.assert_array_equal(got, want)
+    if native:
+        cm = parse.parse_coef_major(data, index, fsel)
+        bh, bw, k = H // 8, WD // 8, parse.CM_FOLD
+        assert cm.shape == (3, 4, bh // k, 64, k * bw)
+        np.testing.assert_array_equal(
+            cm, tf.carry_to_cm(torch.from_numpy(want), bh, bw, k).numpy()
+        )
 
 
 def test_cuda_default_needs_a_card():

@@ -16,7 +16,7 @@ import torch
 
 from mjpeg423_tpu.codec import decoder, encoder
 from mjpeg423_tpu.core.format import parse_file
-from mjpeg423_tpu.native import centropy
+from mjpeg423_tpu_torch.native import centropy
 from mjpeg423_tpu_torch.ops import transform_fused as tf
 
 H, WD = 32, 48
