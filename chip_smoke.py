@@ -15,8 +15,23 @@ Phases, each reported on its own lines:
      the CPU (DecodePipeline(device="cpu"), itself held against the NumPy
      oracle decoder in tests/test_torch_pipeline.py), within a PSNR bound of
      the source frames, with one kernel launch per window;
-  5. timings with CUDA events (median of repeated warm runs) and the
-     end-to-end decode rate.
+  5. timings with CUDA events and the end-to-end decode rate.  A kernel's
+     time (ms, plain_ms) is the median time between two events around one
+     call of its wrapper, so the host's share of a call (checks, allocation,
+     the ctypes call; 0.03-0.08 ms) counts wherever the card is done first.
+     Beside it stands the card's time alone (ms_card): 20 calls of the
+     wrapper are captured into one CUDA graph and the replay is timed.
+K1's frame chunks and the encode kernel's quantizer have phases of their own:
+  3f. the encode kernel's quantizer alone (a high multiply, no division)
+     against the plain version's exact division, both on the card: every
+     int16 coefficient against all 128 entries of the luma and chroma quant
+     rows;
+  3g. the fused decode-window kernel where its grid splits the window's
+     frames over thread blocks: a frame count that is not a multiple of the
+     chunk, a window of one frame, I-frames at the first and at the last
+     frame of a chunk, no I-frame at all, a block count that is not a
+     multiple of the 32-block tile, each on a random carry: frames and the
+     carry out byte-equal to the plain version;
 The other two input layouts of the decode window have their own phases:
   3c. the coefficient-major kernel (row folds 1 and 2) and the int8-packed
      kernel against their plain PyTorch versions on the card, at 640x480
@@ -68,8 +83,10 @@ The codec is integer arithmetic, so every comparison has tolerance 0.  The
 second-to-last line is a JSON object describing each kernel, with its time
 beside the least time the card could take for the same work (bound_ms: the
 larger of its bytes over the memory rate and its integer operations over the
-int32 rate; no single PyTorch call computes any of these functions, so
-library_ms is null); the last is
+int32 rate of both integer pipes, at both geometries; bound_ms_one_pipe is
+the same with one pipe only; copy_ms is a device copy of as many bytes; no
+single PyTorch call computes any of these functions, so library_ms is
+null); the last is
 {"ok": true, "device": {...}}, printed only when every phase passed.  The
 script exits nonzero without a result when torch sees no CUDA device.
 """
@@ -96,17 +113,16 @@ KERNEL_SOURCE = "mjpeg423_tpu_torch/csrc/decode_window.cu"
 REPLACES = "mjpeg423_tpu/ops/transform_fused.py:193"
 CM_REPLACES = "mjpeg423_tpu/ops/transform_fused.py:314"
 I8_REPLACES = "mjpeg423_tpu/ops/transform_fused.py:439"
-REPS = 20
 ENC_W = 16  # EncodeConfig.frames_per_batch
 ENC_SOURCE = "mjpeg423_tpu_torch/csrc/encode_window.cu"
 ENC_REPLACES = "mjpeg423_tpu/ops/encode_fused.py:144"
 ENC_RUNS = 5
+LAYOUT_RUNS = 5  # end-to-end decodes of each non-default layout (phase 5c)
 # The synthetic clips decode at ~33.5 dB against their source (measured at
 # 640x480 and 240x136 with the plain CPU path); garbage frames sit far below.
 MIN_PSNR_DB = 30.0
 K5_SOURCE = "mjpeg423_tpu_torch/csrc/transform_coefmajor.cu"
 K5_REPLACES = "mjpeg423_tpu/ops/transform_pallas.py:163"
-K5_REPS = 20
 # The main path's clips: geometry, frames, GOP length.
 CLIPS = (("1920x1088", 30, 12), ("640x480", 48, 24))
 # The (data, block) meshes of the sharded decodes that run K5.
@@ -115,12 +131,19 @@ K5_MESHES = ((4, 1), (2, 2))
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): 3.35 TB/s
 # of device memory; 67 TFLOP/s float32 outside the tensor cores, which is 2
 # operations on 128 lanes per SM and clock.  An int32 instruction issues on
-# 64 lanes per SM and clock, a quarter of that rate, and that holds for the
-# whole mix the bounds assume: add, three-operand add (IADD3), multiply,
-# multiply-add (IMAD), shift, min/max, compare and select each count as ONE
-# operation.
+# 64 lanes per SM and clock, on one of two pipes: IMAD (multiply-add, and an
+# add, a left shift or a move written as one) on the FMA pipe; add, logic,
+# shift, permute, min/max, compare and select on the ALU pipe.  The two
+# issue side by side (mjpeg423_tpu_torch/scripts/int_pipes.py on an H100 at
+# 700 W: 33 + 69 thread-instructions per SM and clock in a 1:2 mix, 86 for
+# IMAD alone, 67 for the ALU alone), so the least time for a count of
+# instructions that a kernel may balance between the pipes is the count
+# over 128 lanes: half the data sheet's float32 rate.  bound_ms_one_pipe is
+# the stricter reading, all of them on one pipe (a quarter).  Each of add,
+# three-operand add (IADD3), multiply, multiply-add (IMAD), shift, min/max,
+# compare and select counts as ONE operation.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_OPS_PER_S = 67e12 / 4
+PEAK_INT32_OPS_PER_S = 67e12 / 2
 # The least machine operations that compute each function, not the
 # operators of the source text: a multiply and the add that depends on it
 # are one IMAD (so is `x << 13` followed by an add: a multiply by 8192), a
@@ -157,13 +180,28 @@ OPS_K5_BLOCK = 3 * OPS_IDCT_PLANE + OPS_COLOUR_BLOCK
 def bound(nbytes: int, ops: int) -> dict:
     """The least milliseconds the card could take: each input byte read
     once and each output byte written once at the memory rate, or the
-    least int32 instructions (see OPS_*) at one per lane and clock,
-    whichever is larger."""
+    least int32 instructions (see OPS_*) at one per lane and clock on both
+    integer pipes, whichever is larger; and the same with one pipe."""
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_ms_one_pipe": max(by_bytes, 2 * by_ops),
             "bytes": nbytes, "operations": ops}
+
+
+def kernel_bounds(nb: int) -> dict:
+    """The five kernels' bounds for windows of nb blocks a plane (W frames
+    for the decode kernels, ENC_W for the encode kernel)."""
+    dec_ops = W * nb * OPS_DECODE_BLOCK
+    return {
+        "k1": bound(decode_window_bytes(W, nb, 3 * 64 * 2), dec_ops),
+        "k2": bound(decode_window_bytes(W, nb, 3 * 64 * 2), dec_ops),
+        "k3": bound(decode_window_bytes(W, nb, 3 * (64 + 2)), dec_ops),
+        "k4": bound(ENC_W * nb * 3 * 64 * (1 + 2),
+                    ENC_W * nb * 3 * OPS_FDCT_QUANT_PLANE),
+        "k5": bound(W * nb * 64 * (3 * 2 + 4), W * nb * OPS_K5_BLOCK),
+    }
 
 
 def decode_window_bytes(w: int, nb: int, in_bytes_per_block: int) -> int:
@@ -224,23 +262,6 @@ def compare(fk, ck, fp, cp) -> tuple[bool, bool, int]:
     return f_eq, c_eq, err
 
 
-def time_cuda(fn, reps: int = REPS) -> float:
-    """Median milliseconds of fn() over reps warm runs, by CUDA events."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -257,6 +278,7 @@ def main() -> int:
     from mjpeg423_tpu_torch.parallel import decode_stream_sharded, make_mesh
     from mjpeg423_tpu_torch.ops.scale import downscale_raster_host
     from mjpeg423_tpu_torch.runtime import DecodeConfig, DecodePipeline, Profiler
+    from mjpeg423_tpu_torch.tools.timing import time_card, time_per_call
 
     counters = ("LAUNCHES", "LAUNCHES_CM", "LAUNCHES_I8")
 
@@ -357,6 +379,76 @@ def main() -> int:
               f"{'PASS' if same else 'FAIL'}", flush=True)
         if not same:
             failures.append(f"enc-kernel-vs-plain {gname}")
+
+    # ---- 3f. the encode kernel's quantizer, exhaustively --------------------
+    coefs = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16)
+    qk = ef.quantize_probe(coefs)
+    torch.cuda.synchronize()
+    qp = ef.quantize_probe_ref(coefs)
+    torch.cuda.synchronize()
+    quant_err = int((qk.int() - qp.int()).abs().max())
+    same = qk.shape == qp.shape == (128, 65536) and torch.equal(qk, qp)
+    enc_err = max(enc_err, quant_err)
+    print(f"[enc-quantizer] 65536 int16 coefficients x 128 quant entries "
+          f"({len({int(v) for q in transform.quant_tensors(dev) for v in q.flatten()})} "
+          f"distinct values): "
+          f"multiply-high on the card byte-equal to the exact division="
+          f"{same} max_abs_err={quant_err} {'PASS' if same else 'FAIL'}",
+          flush=True)
+    if not same:
+        failures.append("enc-quantizer exhaustive")
+
+    # ---- 3g. K1 where the grid splits the window's frames ------------------
+    # (blocks_h, blocks_w, W, forced chunk or None for the wrapper's plan,
+    # I-frame positions).  72x48 has 54 blocks, 648x488 has 4,941: neither a
+    # multiple of the 32-block tile.
+    slots = tf.window_slots(dev)
+    chunk_plan = {}
+    for gname, (h, w) in GEOMS.items():
+        tiles = -(-(h // 8) * (w // 8) // 32)
+        c = tf.window_chunk_frames(W, tiles, slots)
+        chunk_plan[gname] = {"chunk_frames": c, "grid": [tiles, -(-W // c)],
+                             "slots": slots}
+        print(f"[k1-chunks] {gname} W={W}: {tiles} tiles on {slots} resident "
+              f"thread blocks -> chunks of {c} frames, grid {tiles} x {-(-W // c)}")
+    chunk_cases = [
+        (60, 80, 20, None, ()), (60, 80, 20, None, (7, 13)),
+        (60, 80, 20, None, (6, 14, 19)), (60, 80, 17, 5, (5, 9)),
+        (60, 80, 17, 5, ()), (60, 80, 1, None, ()), (60, 80, 1, None, (0,)),
+        (61, 81, 20, None, (0, 7)), (61, 81, 20, 3, ()),
+        (6, 9, 7, 2, (2, 3)), (6, 9, 7, 1, ()), (136, 240, 20, 7, (13, 14)),
+    ]
+    for bh, bw, wn, force, iframes in chunk_cases:
+        nb = bh * bw
+        amps = torch.from_numpy(rng.integers(
+            -32768, 32768, size=(3, wn, nb, 64), dtype=np.int16)).to(dev)
+        carry = torch.from_numpy(rng.integers(
+            -32768, 32768, size=(3, nb, 64), dtype=np.int16)).to(dev)
+        seg_np = np.zeros(wn, dtype=bool)
+        seg_np[list(iframes)] = True
+        seg = torch.from_numpy(seg_np).to(dev)
+        used = force or tf.window_chunk_frames(wn, -(-nb // 32), slots)
+        for raster in (True, False):
+            kw = dict(blocks_h=bh, blocks_w=bw, raster=raster)
+            fk, ck = tf.decode_window_fused(amps, seg, carry, **kw) if not force \
+                else tf._launch_window(amps, seg, carry, **kw, chunk_frames=force)
+            torch.cuda.synchronize()
+            fp, cp = tf.decode_window_fused_ref(amps, seg, carry, **kw)
+            torch.cuda.synchronize()
+            f_eq, c_eq, err = compare(fk, ck, fp, cp)
+            max_err = max(max_err, err)
+            ok = f_eq and c_eq
+            print(f"[k1-chunks] {bw * 8}x{bh * 8} ({nb} blocks, {nb % 32} past "
+                  f"the last full tile) W={wn} chunks of {used} "
+                  f"({'forced' if force else 'planned'}) "
+                  f"seg={''.join('I' if x else 'P' for x in seg_np)} "
+                  f"raster={raster}: frames byte-equal={f_eq} carry byte-equal="
+                  f"{c_eq} max_abs_err={err} {'PASS' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failures.append(f"k1-chunks {bw * 8}x{bh * 8} W={wn} "
+                                f"chunk={used} raster={raster}")
+        del amps, fk, fp
 
     # ---- 3c. coefficient-major and int8-packed kernels vs plain ------------
     cm_err = i8_err = 0
@@ -685,17 +777,21 @@ def main() -> int:
     timing = {}
     for gname, (amps, seg, carry, bh, bw) in inputs.items():
         kw = dict(blocks_h=bh, blocks_w=bw, raster=False, rows_per_step=1)
-        k_ms = time_cuda(lambda: tf.decode_window_fused(amps, seg, carry, **kw))
-        kr_ms = time_cuda(lambda: tf.decode_window_fused(
+        k_ms = time_card(lambda: tf.decode_window_fused(amps, seg, carry, **kw))
+        kr_ms = time_card(lambda: tf.decode_window_fused(
             amps, seg, carry, **{**kw, "raster": True}))
-        p_ms = time_cuda(
+        kc_ms = time_per_call(lambda: tf.decode_window_fused(amps, seg, carry, **kw))
+        p_ms = time_per_call(
             lambda: tf.decode_window_fused_ref(amps, seg, carry, **kw), reps=10)
-        timing[gname] = (k_ms, p_ms)
-        print(f"[time] {gname} W={W}: kernel {k_ms:.4f} ms/window "
-              f"({W / k_ms * 1e3:.1f} frames/s) blocked, {kr_ms:.4f} ms "
-              f"raster; plain PyTorch {p_ms:.4f} ms/window "
-              f"({W / p_ms * 1e3:.1f} frames/s); kernel/plain speedup "
-              f"{p_ms / k_ms:.2f}x", flush=True)
+        krc_ms = time_per_call(lambda: tf.decode_window_fused(
+            amps, seg, carry, **{**kw, "raster": True}))
+        timing[gname] = (kc_ms, p_ms, k_ms, kr_ms, krc_ms)
+        print(f"[time] {gname} W={W}: kernel {kc_ms:.4f} ms/window around "
+              f"one call ({W / kc_ms * 1e3:.1f} frames/s), plain PyTorch "
+              f"{p_ms:.4f} ms/window ({W / p_ms * 1e3:.1f} frames/s), "
+              f"kernel/plain speedup {p_ms / kc_ms:.2f}x, raster output "
+              f"{krc_ms:.4f} ms; on the card alone {k_ms:.4f} ms blocked, "
+              f"{kr_ms:.4f} ms raster", flush=True)
 
     e2e = {}
     for gname, (mpg, _want, nf, _src) in clips.items():
@@ -721,13 +817,15 @@ def main() -> int:
     # ---- 5b. encode timings ------------------------------------------------
     enc_timing = {}
     for gname, (s, bh, bw) in enc_inputs.items():
-        k_ms = time_cuda(lambda: ef.encode_window_fused(s, blocks_h=bh, blocks_w=bw))
-        p_ms = time_cuda(
+        k_ms = time_card(lambda: ef.encode_window_fused(s, blocks_h=bh, blocks_w=bw))
+        kc_ms = time_per_call(lambda: ef.encode_window_fused(s, blocks_h=bh, blocks_w=bw))
+        p_ms = time_per_call(
             lambda: ef.encode_window_fused_ref(s, blocks_h=bh, blocks_w=bw), reps=10)
-        enc_timing[gname] = (k_ms, p_ms)
-        print(f"[enc-time] {gname} W={ENC_W}: kernel {k_ms:.4f} ms/window "
-              f"({ENC_W / k_ms * 1e3:.1f} frames/s); plain PyTorch "
-              f"{p_ms:.4f} ms/window; kernel/plain speedup {p_ms / k_ms:.2f}x",
+        enc_timing[gname] = (kc_ms, p_ms, k_ms)
+        print(f"[enc-time] {gname} W={ENC_W}: kernel {kc_ms:.4f} ms/window "
+              f"around one call ({ENC_W / kc_ms * 1e3:.1f} frames/s), plain "
+              f"PyTorch {p_ms:.4f} ms/window, kernel/plain speedup "
+              f"{p_ms / kc_ms:.2f}x; on the card alone {k_ms:.4f} ms",
               flush=True)
 
     enc_e2e = {}
@@ -755,20 +853,24 @@ def main() -> int:
         a_cm = tf.carry_to_cm(amps, bh, bw, 1)
         c_cm = tf.carry_to_cm(carry, bh, bw, 1)
         t = {
-            "cm": time_cuda(lambda: tf.decode_window_fused_cm(a_cm, seg, c_cm, **kw)),
-            "cm_plain": time_cuda(lambda: tf.decode_window_fused_cm_ref(
+            "cm_card": time_card(lambda: tf.decode_window_fused_cm(a_cm, seg, c_cm, **kw)),
+            "cm": time_per_call(lambda: tf.decode_window_fused_cm(a_cm, seg, c_cm, **kw)),
+            "cm_plain": time_per_call(lambda: tf.decode_window_fused_cm_ref(
                 a_cm, seg, c_cm, **kw), reps=10),
-            "i8": time_cuda(lambda: tf.decode_window_fused_i8(dc, ac8, seg, carry, **kw)),
-            "i8_plain": time_cuda(lambda: tf.decode_window_fused_i8_ref(
+            "i8_card": time_card(lambda: tf.decode_window_fused_i8(dc, ac8, seg, carry, **kw)),
+            "i8": time_per_call(lambda: tf.decode_window_fused_i8(dc, ac8, seg, carry, **kw)),
+            "i8_plain": time_per_call(lambda: tf.decode_window_fused_i8_ref(
                 dc, ac8, seg, carry, **kw), reps=10),
-            "bm": time_cuda(lambda: tf.decode_window_fused(amps, seg, carry, **kw)),
+            "bm": time_per_call(lambda: tf.decode_window_fused(amps, seg, carry, **kw)),
         }
         lay_timing[gname] = t
-        print(f"[lay-time] {gname} W={W} blocked k=1, ms/window: "
-              f"cm kernel {t['cm']:.4f} plain {t['cm_plain']:.4f} "
-              f"({t['cm_plain'] / t['cm']:.2f}x); i8 kernel {t['i8']:.4f} plain "
-              f"{t['i8_plain']:.4f} ({t['i8_plain'] / t['i8']:.2f}x); "
-              f"block-major kernel in the same call {t['bm']:.4f}", flush=True)
+        print(f"[lay-time] {gname} W={W} blocked k=1, ms/window around one "
+              f"call (on the card alone): cm kernel {t['cm']:.4f} "
+              f"({t['cm_card']:.4f}) plain {t['cm_plain']:.4f} "
+              f"({t['cm_plain'] / t['cm']:.2f}x); i8 kernel {t['i8']:.4f} "
+              f"({t['i8_card']:.4f}) plain {t['i8_plain']:.4f} "
+              f"({t['i8_plain'] / t['i8']:.2f}x); block-major kernel in the "
+              f"same phase {t['bm']:.4f}", flush=True)
 
     lay_e2e = {}
     for name, (cfg, _counter, _probe) in layouts.items():
@@ -779,7 +881,7 @@ def main() -> int:
             p2.decode_array(mpg)
             p2.profiler = prof = Profiler()
             runs = []
-            for _ in range(10):
+            for _ in range(LAYOUT_RUNS):
                 t0 = time.perf_counter()
                 p2.decode_array(mpg)
                 runs.append(time.perf_counter() - t0)
@@ -796,13 +898,16 @@ def main() -> int:
     # ---- 5e. IDCT + colour on coefficient-major states ---------------------
     k5_timing = {}
     for gname, st in k5_inputs.items():
-        k_ms = time_cuda(lambda: tc.transform_coefmajor(*st), reps=K5_REPS)
-        p_ms = time_cuda(lambda: tc.transform_coefmajor_ref(*st), reps=10)
-        k5_timing[gname] = (k_ms, p_ms)
+        k_ms = time_card(lambda: tc.transform_coefmajor(*st))
+        kc_ms = time_per_call(lambda: tc.transform_coefmajor(*st))
+        p_ms = time_per_call(lambda: tc.transform_coefmajor_ref(*st), reps=10)
+        k5_timing[gname] = (kc_ms, p_ms, k_ms)
         n = st[0].shape[1]
-        print(f"[k5-time] {gname} N={n} ({W} frames): kernel {k_ms:.4f} ms "
-              f"({W / k_ms * 1e3:.1f} frames/s); plain PyTorch {p_ms:.4f} ms; "
-              f"kernel/plain speedup {p_ms / k_ms:.2f}x", flush=True)
+        print(f"[k5-time] {gname} N={n} ({W} frames): kernel {kc_ms:.4f} ms "
+              f"around one call ({W / kc_ms * 1e3:.1f} frames/s), plain "
+              f"PyTorch {p_ms:.4f} ms, kernel/plain speedup "
+              f"{p_ms / kc_ms:.2f}x; on the card alone {k_ms:.4f} ms",
+              flush=True)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib")
@@ -813,27 +918,54 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
     nb_hd = (1088 // 8) * (1920 // 8)
-    dec_ops = W * nb_hd * OPS_DECODE_BLOCK
-    bounds = {
-        "k1": bound(decode_window_bytes(W, nb_hd, 3 * 64 * 2), dec_ops),
-        "k2": bound(decode_window_bytes(W, nb_hd, 3 * 64 * 2), dec_ops),
-        "k3": bound(decode_window_bytes(W, nb_hd, 3 * (64 + 2)), dec_ops),
-        "k4": bound(ENC_W * nb_hd * 3 * 64 * (1 + 2),
-                    ENC_W * nb_hd * 3 * OPS_FDCT_QUANT_PLANE),
-        "k5": bound(W * nb_hd * 64 * (3 * 2 + 4), W * nb_hd * OPS_K5_BLOCK),
-    }
-    for name, b in bounds.items():
-        print(f"[bound] {name} 1920x1088: {b['bytes']} bytes, "
-              f"{b['operations']} int32 operations -> {b['bound_ms']:.4f} ms "
-              f"by {b['bound_by']}")
+    bounds = {g: kernel_bounds((h // 8) * (w // 8)) for g, (h, w) in GEOMS.items()}
+    copy_ms = {}
+    for gname, per_kernel in bounds.items():
+        for name, b in per_kernel.items():
+            print(f"[bound] {name} {gname}: {b['bytes']} bytes, "
+                  f"{b['operations']} int32 operations -> {b['bound_ms']:.4f} "
+                  f"ms by {b['bound_by']} ({b['bound_ms_one_pipe']:.4f} ms with "
+                  f"one integer pipe)")
+    # What the card's memory gives a plain device copy that moves as many
+    # bytes in all (half read, half written).
+    for name, b in bounds["1920x1088"].items():
+        src = torch.empty(b["bytes"] // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms[name] = time_card(lambda: dst.copy_(src))
+        print(f"[bound] {name} 1920x1088: a device copy of {b['bytes']} bytes "
+              f"takes {copy_ms[name]:.4f} ms "
+              f"({b['bytes'] / copy_ms[name] / 1e6:.0f} GB/s)")
 
-    def bound_keys(name: str) -> dict:
-        b = bounds[name]
-        # No single PyTorch call computes any of these functions.
-        return {"bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                "library_ms": None}
-    k_ms, p_ms = timing["1920x1088"]
-    v_ms, vp_ms = timing["640x480"]
+    def measured(name: str, hd_times: tuple, sd_times: tuple) -> dict:
+        """The keys every kernel has, from its (around one call, plain, on
+        the card alone) times at 1920x1088 and at 640x480: ms and plain_ms
+        are the time between two events around one call, ms_card the card's
+        alone, each beside its bound; and a copy of as many bytes."""
+        hd, sd = bounds["1920x1088"][name], bounds["640x480"][name]
+        return {
+            "ms": hd_times[0], "plain_ms": hd_times[1],
+            "bound_ms": hd["bound_ms"], "bound_by": hd["bound_by"],
+            # No single PyTorch call computes any of these functions.
+            "library_ms": None,
+            "ms_over_bound": hd_times[0] / hd["bound_ms"],
+            "ms_640x480": sd_times[0], "plain_ms_640x480": sd_times[1],
+            "bound_ms_640x480": sd["bound_ms"],
+            "bound_by_640x480": sd["bound_by"],
+            "ms_over_bound_640x480": sd_times[0] / sd["bound_ms"],
+            "ms_card": hd_times[2], "ms_card_640x480": sd_times[2],
+            "ms_card_over_bound": hd_times[2] / hd["bound_ms"],
+            "ms_card_over_bound_640x480": sd_times[2] / sd["bound_ms"],
+            "bound_ms_one_pipe": hd["bound_ms_one_pipe"],
+            "bound_ms_one_pipe_640x480": sd["bound_ms_one_pipe"],
+            "copy_ms": copy_ms[name],
+        }
+    hd_t, sd_t = timing["1920x1088"], timing["640x480"]
+    enc_hd, enc_sd = enc_timing["1920x1088"], enc_timing["640x480"]
+    lay_hd, lay_sd = lay_timing["1920x1088"], lay_timing["640x480"]
+
+    def lay_times(t: dict, key: str) -> tuple:
+        return t[key], t[f"{key}_plain"], t[f"{key}_card"]
+    k5_hd, k5_sd = k5_timing["1920x1088"], k5_timing["640x480"]
     # Host-clock seconds of each sharded decode (parse, puts, kernels, gather
     # and host copies), repeated here so the end of the output keeps them.
     print(f"[sharded-summary] wall seconds {json.dumps(sharded_wall_s)}")
@@ -845,14 +977,15 @@ def main() -> int:
         "replaces": REPLACES,
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        **measured("k1", hd_t, sd_t),
         "shape": f"W={W} 1920x1088 blocked",
-        "ms_640x480": v_ms,
-        "plain_ms_640x480": vp_ms,
+        "raster_ms": hd_t[4],
+        "raster_ms_640x480": sd_t[4],
+        "raster_ms_card": hd_t[3],
+        "raster_ms_card_640x480": sd_t[3],
+        "chunks": chunk_plan,
         "e2e_frames_per_s": e2e,
         "sharded_launches": sharded_launches["LAUNCHES"],
-        **bound_keys("k1"),
     }, {
         "name": "encode_window_fused",
         "route": "cuda",
@@ -860,13 +993,9 @@ def main() -> int:
         "replaces": ENC_REPLACES,
         "launches": enc_launches,
         "max_abs_err": enc_err,
-        "ms": enc_timing["1920x1088"][0],
-        "plain_ms": enc_timing["1920x1088"][1],
+        **measured("k4", enc_hd, enc_sd),
         "shape": f"W={ENC_W} 1920x1088",
-        "ms_640x480": enc_timing["640x480"][0],
-        "plain_ms_640x480": enc_timing["640x480"][1],
         "e2e_frames_per_s": enc_e2e,
-        **bound_keys("k4"),
     }, {
         "name": "decode_window_fused_cm",
         "route": "cuda",
@@ -874,14 +1003,10 @@ def main() -> int:
         "replaces": CM_REPLACES,
         "launches": layout_launches["coef_major"],
         "max_abs_err": cm_err,
-        "ms": lay_timing["1920x1088"]["cm"],
-        "plain_ms": lay_timing["1920x1088"]["cm_plain"],
+        **measured("k2", lay_times(lay_hd, "cm"), lay_times(lay_sd, "cm")),
         "shape": f"W={W} 1920x1088 blocked k=1",
-        "ms_640x480": lay_timing["640x480"]["cm"],
-        "plain_ms_640x480": lay_timing["640x480"]["cm_plain"],
         "e2e_frames_per_s": lay_e2e["coef_major"],
         "sharded_launches": sharded_launches["LAUNCHES_CM"],
-        **bound_keys("k2"),
     }, {
         "name": "decode_window_fused_i8",
         "route": "cuda",
@@ -889,13 +1014,9 @@ def main() -> int:
         "replaces": I8_REPLACES,
         "launches": layout_launches["pack_i8"],
         "max_abs_err": i8_err,
-        "ms": lay_timing["1920x1088"]["i8"],
-        "plain_ms": lay_timing["1920x1088"]["i8_plain"],
+        **measured("k3", lay_times(lay_hd, "i8"), lay_times(lay_sd, "i8")),
         "shape": f"W={W} 1920x1088 blocked",
-        "ms_640x480": lay_timing["640x480"]["i8"],
-        "plain_ms_640x480": lay_timing["640x480"]["i8_plain"],
         "e2e_frames_per_s": lay_e2e["pack_i8"],
-        **bound_keys("k3"),
     }, {
         "name": "transform_coefmajor",
         "route": "cuda",
@@ -903,12 +1024,8 @@ def main() -> int:
         "replaces": K5_REPLACES,
         "launches": sharded_launches["LAUNCHES_K5"],
         "max_abs_err": k5_err,
-        "ms": k5_timing["1920x1088"][0],
-        "plain_ms": k5_timing["1920x1088"][1],
+        **measured("k5", k5_hd, k5_sd),
         "shape": f"N={W * nb_hd} ({W} frames of 1920x1088)",
-        "ms_640x480": k5_timing["640x480"][0],
-        "plain_ms_640x480": k5_timing["640x480"][1],
-        **bound_keys("k5"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

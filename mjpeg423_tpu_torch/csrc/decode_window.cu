@@ -7,46 +7,75 @@
 //   K1 decode_window_fused     block-major int16 (3, W, B, 64)
 //   K2 decode_window_fused_cm  coefficient-major int16 (3, W, bh/k, 64, k*bw)
 //   K3 decode_window_fused_i8  int16 DC (3, W, B) + int8 AC (3, W, B, 64)
-// Here too one kernel body, decode_window_kernel<In>, serves all three: the
-// template parameter In says where a window's amplitudes and carry live, so
-// a colour or packing fix cannot drift between the layouts.  For every frame
-// of a window and every 8x8 block:
+// Here K2 and K3 share one body, decode_window_kernel<In> (the template
+// parameter In says where a window's amplitudes and carry live), K1 has its
+// own, decode_window_bm_kernel, and all of them take their arithmetic from
+// idct_color.cuh, so a colour or packing fix cannot drift between the
+// layouts.  For every frame of a window and every 8x8 block:
 //   int16 dequant (wrapping) -> state update (I-frame replaces, P-frame adds
 //   with int16 wrap) -> islow 2-D IDCT in int32 fixed point -> clamp 0..255
 //   -> 14-bit YCbCr->RGB -> BGRA word b | g<<8 | r<<16.
 // The coefficient state of the window's last frame is written back as the
 // carry for the next window, in the input's own layout.
 //
-// What bounds it on this card: integer ALU work, not HBM.  The JAX cost
-// model counts ~7,800 int ops per block-frame against 640 bytes moved
-// (3 x 128 B of amplitudes in, 256 B of pixels out; 3 x 66 B in for K3),
-// ~12 ops per byte, above the ~5 int32 ops per byte at which an H100's
-// integer pipes (~17 T op/s) and its HBM (3.35 TB/s) balance.  The design
-// therefore keeps every intermediate out of device memory:
-//   * one thread block owns TILE = 32 image blocks for the whole window;
-//     thread (x, l) with x = threadIdx.x (image block) and l = threadIdx.y
-//     (0..7) holds column l of the three planes' coefficient state in
-//     registers from the first frame to the last, so the carry is read
-//     once and written once and the W-frame recurrence is a loop here;
-//   * per frame the tile's amplitudes arrive in coalesced loads: K1 and K3
-//     stage them through shared memory (one 16-byte, or 8-byte, row per
-//     thread and plane); K2's layout already puts 32 neighbouring blocks'
-//     coefficient j side by side, so each thread reads its column straight
-//     from global memory in 64-byte warp runs;
-//   * pass 1 of the IDCT runs down column l, the workspace goes through
-//     shared memory, pass 2 runs along row l, and the thread then owns
-//     row l of all three planes, which is what the colour convert needs;
-//   * the seg mask and the two quant rows sit in shared memory;
-//   * a warp is 32 neighbouring image blocks at one row, so both output
-//     layouts store in coalesced runs: 32 bytes per thread in raster rows,
-//     or 32 consecutive words per output column in the blocked layout.
+// What bounds it on this card: the bytes, once the integer work keeps both
+// pipes busy and no warp waits on a load.  The least count is 4,096 int32
+// instructions a block-frame (chip_smoke.py, OPS_DECODE_BLOCK: 44 a
+// butterfly, 16 a pixel of colour and pack, 3 a coefficient of
+// dequantization and recurrence) against 640 bytes moved (3 x 128 B of
+// amplitudes in, 256 B of pixels out; 3 x 66 B in for K3).  At 64 lanes per
+// SM and clock on each of two pipes (IMAD on the FMA pipe, the rest on the
+// ALU pipe) that is 0.080 ms a 20-frame 1080p window, 0.160 ms on one pipe
+// alone, against 0.132 ms for the bytes at 3.35 TB/s.  Measured on an H100
+// (700 W), a body that loads, computes and stores in turn (two barriers a
+// frame, 24 warps an SM, 2.58 waves at 1080p, 150 thread blocks on 132 SMs
+// at 640x480) issues 6,632 instructions a block-frame at under 40% of the
+// issue rate: latency binds it, not the count.  K1 as laid out below takes
+// 0.17 ms, less than a device copy of as many bytes (0.18 ms).
+//
+// K1 (decode_window_bm_kernel) is laid out for that:
+//   * a thread block owns TILE = 32 image blocks and a CHUNK of the
+//     window's frames (grid = tiles x chunks; the wrapper picks the chunk so
+//     that a small geometry still fills every SM, and one chunk where the
+//     tiles alone do).  The int16 coefficient state lives in registers.  A
+//     chunk that starts inside a GOP first replays the recurrence (3
+//     instructions a coefficient, no IDCT) from the last I-frame before it,
+//     or from the carry; the chunk that holds the last frame writes the
+//     carry out;
+//   * the amplitudes of frame f+1 and f+2 are in flight (cp.async, 16 bytes
+//     a thread and plane, two buffers) while frame f is computed.  The warp
+//     that copies a block's rows is the warp that reads its columns, so a
+//     landed frame needs a __syncwarp, not a barrier.  Rows are XOR-swizzled
+//     by the block's index so that the 2-byte column reads of a warp (4
+//     blocks x 8 columns) fall in 16 distinct banks, two lanes a word;
+//   * pass 1 runs with the 8 column threads of a block in one warp (thread
+//     t: block t/8, column t%8); pass 2, the colour conversion and the
+//     stores run with a warp as 32 neighbouring blocks at one row (thread t:
+//     block t%32, row t/32), which is what coalesces both output layouts
+//     (128-byte runs in the blocked one).  The workspace between them is 72
+//     words a block plus 4 for every second group of four, which makes the
+//     column stores and the 16-byte row loads both conflict-free;
+//   * the second barrier of a frame sits right after the workspace loads,
+//     so pass 2, the colour, the stores and the next frame's pass 1 run
+//     without meeting another warp;
+//   * the quant rows stay in shared memory (a 2-byte load a use costs no
+//     ALU slot; unpacking a packed register would), the I/P choice is a
+//     uniform branch around the 24 state updates, and __launch_bounds__
+//     (256, 4) keeps four thread blocks on an SM: 1,020 tiles at 1080p are
+//     1.93 waves of 528.
+// K2 and K3 (decode_window_kernel<In>) run the plainer body: one thread
+// block per tile for the whole window, a warp as 32 blocks at one column
+// in both passes, which is what K2's layout coalesces.
 //
 // The butterfly, the descale and the colour conversion live in
 // idct_color.cuh, shared with transform_coefmajor.cu; the butterfly runs in
-// uint32_t because full-range int16 states overflow int32 (see there).
+// uint32_t because full-range int16 states overflow int32 (see
+// fixed_point.cuh).
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+#include "fixed_point.cuh"
 #include "idct_color.cuh"
 
 namespace {
@@ -68,29 +97,10 @@ struct Geom {
     int w_frames, nb, groups, bwe;  // bwe = k * blocks_w
 };
 
-// The three input layouts.  Each gives the carry's offset of coefficient j
+// The input layouts of the shared body.  Each gives the carry's offset of coefficient j
 // of plane p at block (b | grp, col), and either stages one 8-coefficient
 // row of a block into shared memory as int16 (kStaged: stage) or reads
 // coefficient j of a block straight from global memory (amp).
-
-// K1: amps (3, W, B, 64) int16, carry (3, B, 64) int16.
-struct BlockMajor {
-    static constexpr bool kStaged = true;
-    const int16_t* __restrict__ amps;
-
-    __device__ size_t carry_at(const Geom& g, int p, int b, int, int, int j) const {
-        return (static_cast<size_t>(p) * g.nb + b) * 64 + j;
-    }
-    // Row `row` of block b, plane p, frame f: one 16-byte load -> 4 words.
-    __device__ void stage(const Geom& g, int p, int f, int b, int row, uint32_t* d) const {
-        const size_t off = ((static_cast<size_t>(p) * g.w_frames + f) * g.nb + b) * 64 + row * 8;
-        const uint4 v = *reinterpret_cast<const uint4*>(amps + off);
-        d[0] = v.x;
-        d[1] = v.y;
-        d[2] = v.z;
-        d[3] = v.w;
-    }
-};
 
 // K2: amps (3, W, bh/k, 64, k*bw) int16, carry (3, bh/k, 64, k*bw) int16.
 struct CoefMajor {
@@ -233,7 +243,7 @@ decode_window_kernel(In in,
                 row_in[c] = static_cast<uint32_t>(s_ws[p][x * WS_STRIDE + l * 8 + c]);
             butterfly<CONST_BITS + PASS1_BITS + 3>(row_in, pix[p]);
 #pragma unroll
-            for (int j = 0; j < 8; ++j) pix[p][j] = min(max(pix[p][j], 0), 255);
+            for (int j = 0; j < 8; ++j) pix[p][j] = clamp_sample(pix[p][j]);
         }
         if (valid) {
             uint32_t px[8];
@@ -262,6 +272,252 @@ decode_window_kernel(In in,
     }
 }
 
+// ---- K1: block-major amplitudes ------------------------------------------
+
+constexpr int BM_THREADS = TILE * LANES;
+constexpr int BM_MIN_BLOCKS = 4;              // thread blocks resident on an SM
+constexpr int STAGE_PLANE = TILE * 64 * 2;    // bytes of one plane of a tile-frame
+constexpr int STAGE_BYTES = 3 * STAGE_PLANE;  // one buffer: a tile-frame's amplitudes
+constexpr int WS_PLANE = TILE * 72;           // workspace words a plane (4 spare at the end)
+constexpr int BM_SMEM = 2 * STAGE_BYTES + 3 * WS_PLANE * 4 + 2 * 64 * 2 + MAX_W;
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are still pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Word offset of block b's 64-word workspace: 72 words a block, and 4 more
+// for the upper four of every eight blocks.  In 16-byte chunks that is
+// 18 b + (b / 4) % 2: eight neighbouring blocks start at eight different
+// chunks modulo 8 (the 16-byte row loads of a quarter-warp), and the four
+// blocks of a pass-1 warp start 8 banks apart (its column stores).
+__device__ __forceinline__ int ws_base(int b) { return 72 * b + 4 * ((b >> 2) & 1); }
+
+// Dequantization and recurrence of one column: st[r] <- int16(a * q) for an
+// I-frame, int16(st[r] + a * q) for a P-frame.  `in` points at the thread's
+// column in a staged block (row r sits in chunk r ^ sw), `q` at its column of
+// the plane's quant row.
+template <bool IS_I>
+__device__ __forceinline__ void update_column(int32_t st[8], const int16_t* in,
+                                              const int16_t* q, int sw) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+        const int32_t a = in[(r ^ sw) << 3];
+        const int32_t d = a * static_cast<int32_t>(q[r * 8]);
+        st[r] = wrap16(IS_I ? d : st[r] + d);
+    }
+}
+
+// amps (3, W, B, 64) int16   seg (W,) uint8 (nonzero = I-frame)
+// quants (2, 64) int16 (luma, chroma)   carry / new_carry (3, B, 64) int16
+// frames: raster (W, 8*bh, 8*bw) uint32, or blocked
+//         (W, 8[outcol], bh/k, 8[row], k*bw) uint32 with k = rows_per_step
+// grid (tiles, chunks): blockIdx.y owns frames [y * chunk_frames, ...).
+__global__ void __launch_bounds__(BM_THREADS, BM_MIN_BLOCKS)
+decode_window_bm_kernel(const int16_t* __restrict__ amps,
+                        const uint8_t* __restrict__ seg,
+                        const int16_t* __restrict__ carry,
+                        const int16_t* __restrict__ quants,
+                        uint32_t* __restrict__ frames,
+                        int16_t* __restrict__ new_carry,
+                        int w_frames, int blocks_h, int blocks_w,
+                        int rows_per_step, int raster, int chunk_frames) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char* s_stage = smem;  // [2][3][TILE][64] int16, rows swizzled
+    int32_t* s_ws = reinterpret_cast<int32_t*>(smem + 2 * STAGE_BYTES);
+    int16_t* s_q = reinterpret_cast<int16_t*>(smem + 2 * STAGE_BYTES + 3 * WS_PLANE * 4);
+    uint8_t* s_seg = smem + 2 * STAGE_BYTES + 3 * WS_PLANE * 4 + 2 * 64 * 2;
+
+    const int tid = threadIdx.x;
+    const int nb = blocks_h * blocks_w;
+    const int tile0 = blockIdx.x * TILE;
+
+    if (tid < 128) s_q[tid] = quants[tid];
+    for (int f = tid; f < w_frames; f += BM_THREADS) s_seg[f] = seg[f];
+    __syncthreads();
+
+    // This chunk shows frames [f0, f1).  Its state starts at the last
+    // I-frame at or before f0, or at the carry when there is none.
+    const int f0 = blockIdx.y * chunk_frames;
+    const int f1 = min(f0 + chunk_frames, w_frames);
+    int fs = f0;
+    while (fs > 0 && s_seg[fs] == 0) --fs;
+    const bool from_carry = s_seg[fs] == 0;
+    const int n_frames = f1 - fs;
+
+    // Loader and pass-1 role: block blk1 of the tile, row / column l1.
+    const int blk1 = tid >> 3;
+    const int l1 = tid & 7;
+    const bool ld_valid = tile0 + blk1 < nb;
+    const int sw = (blk1 & 3) << 1;
+    const uint32_t ld_dst = static_cast<uint32_t>(__cvta_generic_to_shared(s_stage))
+                            + blk1 * 128 + ((l1 ^ sw) << 4);
+    const size_t frame_elems = static_cast<size_t>(nb) * 64;
+    const size_t plane_elems = static_cast<size_t>(w_frames) * frame_elems;
+    const size_t row_off = static_cast<size_t>(tile0 + blk1) * 64 + l1 * 8;
+    const int16_t* rd = reinterpret_cast<const int16_t*>(s_stage) + blk1 * 64 + l1;
+
+    // Starts the copy of frame f into buffer buf and commits it as one group.
+    auto issue = [&](int f, int buf) {
+        if (ld_valid) {
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+                cp_async16(ld_dst + buf * STAGE_BYTES + p * STAGE_PLANE,
+                           amps + p * plane_elems + f * frame_elems + row_off);
+        }
+        cp_async_commit();
+    };
+
+    // Column l1 of each plane's state, sign-extended: st[p][r] = (r, l1).
+    int32_t st[3][8];
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int r = 0; r < 8; ++r) st[p][r] = 0;
+
+    if (from_carry) {  // the carry travels like a frame, through buffer 1
+        if (ld_valid) {
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+                cp_async16(ld_dst + STAGE_BYTES + p * STAGE_PLANE,
+                           carry + p * frame_elems + row_off);
+        }
+        cp_async_commit();
+    }
+    issue(fs, 0);
+    if (from_carry) {
+        cp_async_wait<1>();
+        __syncwarp();
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+                st[p][r] = rd[(STAGE_BYTES + p * STAGE_PLANE) / 2 + ((r ^ sw) << 3)];
+        __syncwarp();
+    }
+    if (n_frames > 1) issue(fs + 1, 1);
+    else cp_async_commit();
+
+    // Pass-2 and store role: block x of the tile, row l2.
+    const int x = tid & 31;
+    const int l2 = tid >> 5;
+    const int b = tile0 + x;
+    const bool valid = b < nb;
+    const int by = b / blocks_w;
+    const int bx = b - by * blocks_w;
+    const int height = blocks_h * 8;
+    const int width = blocks_w * 8;
+    const int k = rows_per_step;
+    const int groups = blocks_h / k;
+    const int bwe = k * blocks_w;
+    const int grp = by / k;
+    const int col = b - grp * bwe;
+    int32_t* const ws_col = s_ws + ws_base(blk1) + l1;
+    const int4* const ws_row = reinterpret_cast<const int4*>(s_ws + ws_base(x) + l2 * 8);
+
+    for (int i = 0; i < n_frames; ++i) {
+        const int f = fs + i;
+        const int buf = i & 1;
+        cp_async_wait<1>();  // frame f has landed; f + 1 may still fly
+        __syncwarp();
+        const int16_t* in = rd + buf * (STAGE_BYTES / 2);
+        if (s_seg[f] != 0) {
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+                update_column<true>(st[p], in + p * (STAGE_PLANE / 2),
+                                    s_q + (p == 0 ? 0 : 64) + l1, sw);
+        } else {
+#pragma unroll
+            for (int p = 0; p < 3; ++p)
+                update_column<false>(st[p], in + p * (STAGE_PLANE / 2),
+                                     s_q + (p == 0 ? 0 : 64) + l1, sw);
+        }
+        __syncwarp();  // the warp is done with this buffer: refill it
+        if (i + 2 < n_frames) issue(f + 2, buf);
+        else cp_async_commit();
+        if (f < f0) continue;  // replay of the recurrence only
+
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            uint32_t col_in[8];
+#pragma unroll
+            for (int r = 0; r < 8; ++r) col_in[r] = static_cast<uint32_t>(st[p][r]);
+            int32_t ws[8];
+            butterfly<CONST_BITS - PASS1_BITS>(col_in, ws);
+#pragma unroll
+            for (int r = 0; r < 8; ++r) ws_col[p * WS_PLANE + r * 8] = ws[r];
+        }
+        __syncthreads();
+
+        // Row l2 of every plane of block x, two 16-byte loads a plane.
+        int4 lo[3], hi[3];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            lo[p] = ws_row[p * (WS_PLANE / 4)];
+            hi[p] = ws_row[p * (WS_PLANE / 4) + 1];
+        }
+        __syncthreads();  // the workspace is free for the next frame's pass 1
+
+        int32_t pix[3][8];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+            const uint32_t row_in[8] = {
+                static_cast<uint32_t>(lo[p].x), static_cast<uint32_t>(lo[p].y),
+                static_cast<uint32_t>(lo[p].z), static_cast<uint32_t>(lo[p].w),
+                static_cast<uint32_t>(hi[p].x), static_cast<uint32_t>(hi[p].y),
+                static_cast<uint32_t>(hi[p].z), static_cast<uint32_t>(hi[p].w)};
+            butterfly<CONST_BITS + PASS1_BITS + 3>(row_in, pix[p]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) pix[p][j] = clamp_sample(pix[p][j]);
+        }
+        if (valid) {
+            uint32_t px[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                px[j] = ycbcr_to_bgra(pix[0][j], pix[1][j], pix[2][j]);
+            if (raster) {
+                uint4* dst = reinterpret_cast<uint4*>(
+                    frames + (static_cast<size_t>(f) * height + by * 8 + l2) * width + bx * 8);
+                dst[0] = make_uint4(px[0], px[1], px[2], px[3]);
+                dst[1] = make_uint4(px[4], px[5], px[6], px[7]);
+            } else {
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                    frames[(((static_cast<size_t>(f) * 8 + j) * groups + grp) * 8 + l2) * bwe + col] = px[j];
+            }
+        }
+    }
+
+    // The chunk with the window's last frame writes the carry: the state goes
+    // back through buffer 0, so the stores are whole 16-byte rows.
+    if (f1 == w_frames) {
+        cp_async_wait<0>();
+        __syncwarp();
+        int16_t* wr = reinterpret_cast<int16_t*>(s_stage) + blk1 * 64 + l1;
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+                wr[p * (STAGE_PLANE / 2) + ((r ^ sw) << 3)] = static_cast<int16_t>(st[p][r]);
+        __syncwarp();
+        if (ld_valid) {
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+                const uint4 v = *reinterpret_cast<const uint4*>(
+                    s_stage + p * STAGE_PLANE + blk1 * 128 + ((l1 ^ sw) << 4));
+                *reinterpret_cast<uint4*>(new_carry + p * frame_elems + row_off) = v;
+            }
+        }
+    }
+}
+
 // Launches decode_window_kernel<In> on `stream` of device `device` and
 // returns cudaGetLastError() as an int: 0 when the launch was accepted.
 // The calling thread's current device is restored before returning.
@@ -271,8 +527,7 @@ int launch(In in, const void* seg, const void* carry, const void* quants,
            int blocks_w, int rows_per_step, int raster, int device,
            void* stream) {
     int prev = 0;
-    cudaError_t err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+    cudaError_t err = enter_device(device, &prev);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int nb = blocks_h * blocks_w;
     const dim3 block(TILE, LANES);
@@ -282,12 +537,7 @@ int launch(In in, const void* seg, const void* carry, const void* quants,
         static_cast<const int16_t*>(carry), static_cast<const int16_t*>(quants),
         static_cast<uint32_t*>(frames), static_cast<int16_t*>(new_carry),
         w_frames, blocks_h, blocks_w, rows_per_step, raster);
-    err = cudaGetLastError();
-    if (prev != device) {
-        const cudaError_t back = cudaSetDevice(prev);
-        if (err == cudaSuccess) err = back;
-    }
-    return static_cast<int>(err);
+    return static_cast<int>(leave_device(device, prev, cudaGetLastError()));
 }
 
 }  // namespace
@@ -300,15 +550,52 @@ int mj423_max_window() { return MAX_W; }
 // (0 = launch accepted); each restores the calling thread's device.
 // Pointers are device pointers; the frames (raster) 16-byte aligned.
 
-// K1.  amps (3, W, B, 64) int16, 16-byte aligned; carry (3, B, 64).
+// K1.  amps (3, W, B, 64) int16; carry and new_carry (3, B, 64) int16; all
+// three 16-byte aligned.  chunk_frames in 1..w_frames: the frames one thread
+// block shows (the grid is tiles x ceil(w_frames / chunk_frames)).
 int mj423_decode_window(const void* amps, const void* seg, const void* carry,
                         const void* quants, void* frames, void* new_carry,
                         int w_frames, int blocks_h, int blocks_w,
-                        int rows_per_step, int raster, int device,
-                        void* stream) {
-    return launch(BlockMajor{static_cast<const int16_t*>(amps)}, seg, carry,
-                  quants, frames, new_carry, w_frames, blocks_h, blocks_w,
-                  rows_per_step, raster, device, stream);
+                        int rows_per_step, int raster, int chunk_frames,
+                        int device, void* stream) {
+    if (chunk_frames < 1 || chunk_frames > w_frames)
+        return static_cast<int>(cudaErrorInvalidValue);
+    int prev = 0;
+    cudaError_t err = mj423::enter_device(device, &prev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(decode_window_bm_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, BM_SMEM);
+    if (err == cudaSuccess) {
+        const int nb = blocks_h * blocks_w;
+        const dim3 grid((nb + TILE - 1) / TILE,
+                        (w_frames + chunk_frames - 1) / chunk_frames);
+        decode_window_bm_kernel<<<grid, BM_THREADS, BM_SMEM, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const int16_t*>(amps), static_cast<const uint8_t*>(seg),
+            static_cast<const int16_t*>(carry), static_cast<const int16_t*>(quants),
+            static_cast<uint32_t*>(frames), static_cast<int16_t*>(new_carry),
+            w_frames, blocks_h, blocks_w, rows_per_step, raster, chunk_frames);
+        err = cudaGetLastError();
+    }
+    return static_cast<int>(mj423::leave_device(device, prev, err));
+}
+
+// Thread blocks of K1 that `device` holds at once (SMs x resident blocks
+// per SM at the kernel's registers and shared memory), or minus a CUDA
+// error code.  The wrapper sizes the frame chunks by it.
+int mj423_decode_window_slots(int device) {
+    int prev = 0;
+    cudaError_t err = mj423::enter_device(device, &prev);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(decode_window_bm_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, BM_SMEM);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, decode_window_bm_kernel, BM_THREADS, BM_SMEM);
+    err = mj423::leave_device(device, prev, err);
+    return err == cudaSuccess ? sms * per_sm : -static_cast<int>(err);
 }
 
 // K2.  amps_cm (3, W, bh/k, 64, k*bw) int16 and carry_cm (3, bh/k, 64,

@@ -12,65 +12,54 @@
 // host packer forms the I-DC chain and the P deltas, so no block depends
 // on any other and the grid is embarrassingly parallel.
 //
-// What bounds it on this card: integer ALU work, though less clearly than
-// the decode kernel.  The JAX cost model counts ~2,600 int ops per block
-// against 192 B moved (64 B in, 128 B out), ~14 ops per byte, above the
-// ~5 int32 ops per byte at which the H100's integer pipes and its HBM
-// balance.  The design keeps every intermediate in registers or shared
-// memory and touches device memory once each way:
-//   * the window is one flat array of 3*W*B blocks; a thread block owns
-//     TILE = 32 consecutive blocks (2 KB in, 4 KB out, contiguous), and
-//     thread t works on block t / 8 with lane l = t % 8;
-//   * the load is one 8-byte read per thread (row l of its block), the
-//     whole tile in one coalesced sweep; pass 1 runs on that row in
-//     registers;
-//   * the int16-wrapped workspace goes through shared memory, where the
-//     thread then reads column l for pass 2 and quantizes it in place;
-//   * after a barrier each thread reads row l back and writes it with one
-//     16-byte store, so the stores are coalesced too.
-// The workspace pads each block's rows to 9 words and each block to 72
-// words, which keeps both the row-wise and the column-wise accesses of a
-// warp (4 blocks x 8 lanes) on 32 distinct banks.
+// What bounds it on this card: integer instructions at first sight, the
+// bytes once the quantizer stops dividing.  The least count is 1,216 int32
+// instructions a plane block (chip_smoke.py, OPS_FDCT_QUANT_PLANE: 44 a
+// butterfly, 128 int16 sign extensions, 6 a quantized coefficient) against
+// 192 bytes moved (64 in, 128 out): 0.114 ms a 16-frame 1080p window at 64
+// lanes per SM and clock, 0.090 ms for the bytes at 3.35 TB/s.  The card
+// has no integer divide: a division by a runtime value costs some 1,400
+// instructions a plane block, more than the rest of the kernel together,
+// and one short thread block per 32 blocks (48,960 a window) loads the
+// quant rows and passes two barriers for 2 KB of input.  So:
+//   * no division.  For n = 2|c| + q <= 65,791 and d = 2q <= 510,
+//     floor(n / d) == __umulhi(n, m) with m = floor(2^32 / d) + 1, because
+//     n * (m * d - 2^32) <= n * d < 2^32.  The wrapper computes the 128
+//     multipliers once per device (ops/encode_fused.quant_multipliers; a
+//     test runs every n against every q);
+//   * a grid of a few thread blocks per SM whose warps walk over the
+//     window.  A warp takes 4 consecutive blocks at a time (thread t: block
+//     t / 8, lane l = t % 8), 256 B in and 512 B out, both contiguous, and
+//     loads the next four's samples before it works on these.  Each thread
+//     keeps the 8 quant values and multipliers of its column in registers
+//     and reloads them from shared memory when its block's plane changes
+//     (twice a window at most);
+//   * the 8 lanes of a block are in one warp, so the workspace is private
+//     to the warp and the kernel has no barrier, only __syncwarp.  Pass 1's
+//     output is int16 by definition, so a thread packs its row into one
+//     16-byte store; pass 2 reads its column back with sign-extending
+//     2-byte loads (the DCTELEM wrap costs nothing), quantizes, stores
+//     2-byte results in place, and reads its row as one 16-byte load for
+//     the 16-byte global store.  A block takes 144 B (36 words), which
+//     keeps the four blocks of a warp 4 banks apart: the column accesses
+//     fall in 16 distinct banks, two lanes a word.
 //
 // Overflow: pass 2 sees int16 inputs whose products can pass 2^31 for
-// adversarial workspaces, and signed overflow is undefined in C++ (nvcc
-// has no -fwrapv) while the reference wraps.  The butterfly runs in
-// uint32_t and each descale shifts the int32_t reinterpretation (an
-// arithmetic shift), as the decode kernel does.  The quantizer divides
-// exactly in int32: |c| <= 32768 and q <= 255, so 2|c| + q fits.
+// adversarial workspaces; see fixed_point.cuh, whose constants and descale
+// this kernel shares with the decode kernels.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+#include "fixed_point.cuh"
+
 namespace {
 
-constexpr int TILE = 32;          // image blocks per thread block
-constexpr int LANES = 8;          // threads per image block
-constexpr int ROW_STRIDE = 9;     // workspace words per block row (8 + 1)
-constexpr int BLK_STRIDE = 72;    // workspace words per block (8 rows x 9)
+using namespace mj423;
 
-constexpr int CONST_BITS = 13;
-constexpr int PASS1_BITS = 2;
-constexpr uint32_t FIX_0_298631336 = 2446;
-constexpr uint32_t FIX_0_390180644 = 3196;
-constexpr uint32_t FIX_0_541196100 = 4433;
-constexpr uint32_t FIX_0_765366865 = 6270;
-constexpr uint32_t FIX_0_899976223 = 7373;
-constexpr uint32_t FIX_1_175875602 = 9633;
-constexpr uint32_t FIX_1_501321110 = 12299;
-constexpr uint32_t FIX_1_847759065 = 15137;
-constexpr uint32_t FIX_1_961570560 = 16069;
-constexpr uint32_t FIX_2_053119869 = 16819;
-constexpr uint32_t FIX_2_562915447 = 20995;
-constexpr uint32_t FIX_3_072711026 = 25172;
-
-__device__ __forceinline__ int32_t descale(uint32_t x, int n) {
-    return static_cast<int32_t>(x + (1u << (n - 1))) >> n;
-}
-
-// int16 DCTELEM store: keep the low 16 bits, sign-extended.
-__device__ __forceinline__ int32_t wrap16(int32_t v) {
-    return static_cast<int32_t>(static_cast<int16_t>(v));
-}
+constexpr int THREADS = 256;      // 8 warps, each on its own blocks
+constexpr int WARP_BLOCKS = 4;    // image blocks a warp takes at a time
+constexpr int BLK_WORDS = 36;     // workspace words per block (32 + 4)
 
 // One LL&M forward butterfly (reference: fdct.c:33-160), modular in
 // uint32_t.  PASS1 keeps the outputs scaled by 2^PASS1_BITS; pass 2 removes
@@ -116,70 +105,114 @@ __device__ __forceinline__ void fdct_butterfly(const uint32_t x[8], int32_t out[
     out[1] = descale(t7 + z1 + z4, N);
 }
 
-// samples (3, W, B, 64) uint8, quants (2, 64) int16 (luma, chroma),
-// out (3, W, B, 64) int16; n_blocks = 3*W*B, plane_blocks = W*B.
-__global__ void __launch_bounds__(TILE * LANES)
+// Exact round-half-away quantize of an int16 coefficient c by q in 1..255:
+// sign(c) * ((2|c| + q) / (2q)), the division as a high multiply by
+// m = floor(2^32 / (2q)) + 1 (see the note at the top).
+__device__ __forceinline__ int32_t quantize(int32_t c, int32_t q, uint32_t m) {
+    const uint32_t num = 2u * static_cast<uint32_t>(abs(c)) + static_cast<uint32_t>(q);
+    const int32_t mag = static_cast<int32_t>(__umulhi(num, m));
+    return c < 0 ? -mag : mag;
+}
+
+// The quantizer alone, for tests: out[j][i] = quantize(coefs[i], quants[j],
+// mults[j]) for every coefficient i < n and table entry j < 128.
+__global__ void quantize_probe_kernel(const int16_t* __restrict__ coefs,
+                                      const int16_t* __restrict__ quants,
+                                      const uint32_t* __restrict__ mults,
+                                      int16_t* __restrict__ out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const int j = blockIdx.y;
+    if (i < n)
+        out[static_cast<size_t>(j) * n + i] =
+            static_cast<int16_t>(quantize(coefs[i], quants[j], mults[j]));
+}
+
+// samples (3, W, B, 64) uint8; quants (2, 64) int16 (luma, chroma);
+// mults (2, 64) uint32, floor(2^32 / (2 q)) + 1; out (3, W, B, 64) int16;
+// n_blocks = 3*W*B, plane_blocks = W*B.
+__global__ void __launch_bounds__(THREADS)
 encode_window_kernel(const uint8_t* __restrict__ samples,
                      const int16_t* __restrict__ quants,
+                     const uint32_t* __restrict__ mults,
                      int16_t* __restrict__ out,
                      long long n_blocks, long long plane_blocks) {
-    __shared__ int32_t s_ws[TILE * BLK_STRIDE];
-    __shared__ int16_t s_q[2][64];
+    __shared__ __align__(16) uint32_t s_ws[THREADS / 32][WARP_BLOCKS * BLK_WORDS];
+    __shared__ int32_t s_q[2][64];
+    __shared__ uint32_t s_m[2][64];
 
     const int tid = threadIdx.x;
-    const int blk = tid >> 3;
-    const int l = tid & 7;
-    const long long n = static_cast<long long>(blockIdx.x) * TILE + blk;
-    const bool valid = n < n_blocks;
+    if (tid < 128) {
+        s_q[tid >> 6][tid & 63] = quants[tid];
+        s_m[tid >> 6][tid & 63] = mults[tid];
+    }
+    __syncthreads();
 
-    if (tid < 128) s_q[tid >> 6][tid & 63] = quants[tid];
+    const int lane = tid & 31;
+    const int l = lane & 7;
+    uint32_t* ws = &s_ws[tid >> 5][(lane >> 3) * BLK_WORDS];
+    int16_t* ws16 = reinterpret_cast<int16_t*>(ws);
+    const long long stride = static_cast<long long>(gridDim.x) * (THREADS / 8);
+    long long n = static_cast<long long>(blockIdx.x) * (THREADS / 8) + (tid >> 3);
 
-    // Row l of block n: 8 samples, one 8-byte load (the tile is one
-    // contiguous 2 KB run, so the warp's loads coalesce).
+    int32_t q[8];
+    uint32_t m[8];
+    int table = -1;  // which quant row q and m hold
+
     uint2 raw = make_uint2(0u, 0u);
-    if (valid) raw = *reinterpret_cast<const uint2*>(samples + n * 64 + l * 8);
-    uint32_t row[8];
+    if (n < n_blocks) raw = *reinterpret_cast<const uint2*>(samples + n * 64 + l * 8);
+    // The trip count is the same for all 32 lanes of a warp (its first
+    // block decides), so the __syncwarp()s below are met by all of them.
+    for (long long n_warp = n - (lane >> 3); n_warp < n_blocks; n_warp += stride, n += stride) {
+        const bool valid = n < n_blocks;
+        // Row l of block n: 8 samples in one 8-byte load; the next trip's
+        // load starts now.
+        uint32_t row[8];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        row[c] = (raw.x >> (8 * c)) & 0xFFu;
-        row[c + 4] = (raw.y >> (8 * c)) & 0xFFu;
-    }
-
-    // Pass 1 along row l -> workspace (row l, columns u), int16-wrapped.
-    int32_t p1[8];
-    fdct_butterfly<true>(row, p1);
-    int32_t* ws = &s_ws[blk * BLK_STRIDE];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) ws[l * ROW_STRIDE + u] = wrap16(p1[u]);
-    __syncthreads();
-
-    // Pass 2 down column l, then quantize (row v, column l) in place: this
-    // thread is the only one that reads or writes column l of this block.
-    uint32_t col[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) col[r] = static_cast<uint32_t>(ws[r * ROW_STRIDE + l]);
-    int32_t p2[8];
-    fdct_butterfly<false>(col, p2);
-    const int16_t* q = s_q[valid && n >= plane_blocks ? 1 : 0];
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-        const int32_t c = wrap16(p2[v]);
-        const int32_t qv = q[v * 8 + l];
-        const int32_t mag = (2 * abs(c) + qv) / (2 * qv);
-        ws[v * ROW_STRIDE + l] = c < 0 ? -mag : mag;
-    }
-    __syncthreads();
-
-    // Row l back out: 8 int16 in one 16-byte store.
-    if (valid) {
-        uint32_t w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const uint32_t lo = static_cast<uint16_t>(ws[l * ROW_STRIDE + 2 * i]);
-            const uint32_t hi = static_cast<uint16_t>(ws[l * ROW_STRIDE + 2 * i + 1]);
-            w[i] = lo | (hi << 16);
+        for (int c = 0; c < 4; ++c) {
+            row[c] = __byte_perm(raw.x, 0u, 0x4440 + c);
+            row[c + 4] = __byte_perm(raw.y, 0u, 0x4440 + c);
         }
-        *reinterpret_cast<uint4*>(out + n * 64 + l * 8) = make_uint4(w[0], w[1], w[2], w[3]);
+        if (n + stride < n_blocks)
+            raw = *reinterpret_cast<const uint2*>(samples + (n + stride) * 64 + l * 8);
+
+        const int want = valid && n >= plane_blocks ? 1 : 0;
+        if (want != table) {
+            table = want;
+#pragma unroll
+            for (int v = 0; v < 8; ++v) {
+                q[v] = s_q[want][v * 8 + l];
+                m[v] = s_m[want][v * 8 + l];
+            }
+        }
+
+        // Pass 1 along row l -> workspace row l, int16: one 16-byte store.
+        int32_t p1[8];
+        fdct_butterfly<true>(row, p1);
+        uint4 packed;
+        packed.x = __byte_perm(p1[0], p1[1], 0x5410);
+        packed.y = __byte_perm(p1[2], p1[3], 0x5410);
+        packed.z = __byte_perm(p1[4], p1[5], 0x5410);
+        packed.w = __byte_perm(p1[6], p1[7], 0x5410);
+        *reinterpret_cast<uint4*>(ws + l * 4) = packed;
+        __syncwarp();
+
+        // Pass 2 down column l, then quantize (row v, column l) in place:
+        // this thread is the only one that reads or writes column l.
+        uint32_t col[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+            col[r] = static_cast<uint32_t>(static_cast<int32_t>(ws16[r * 8 + l]));
+        int32_t p2[8];
+        fdct_butterfly<false>(col, p2);
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+            ws16[v * 8 + l] = static_cast<int16_t>(quantize(wrap16(p2[v]), q[v], m[v]));
+        }
+        __syncwarp();
+
+        // Row l back out: 8 int16 in one 16-byte load and store.
+        const uint4 res = *reinterpret_cast<const uint4*>(ws + l * 4);
+        if (valid) *reinterpret_cast<uint4*>(out + n * 64 + l * 8) = res;
     }
 }
 
@@ -188,31 +221,61 @@ encode_window_kernel(const uint8_t* __restrict__ samples,
 extern "C" {
 
 // Launches the kernel on `stream` (a cudaStream_t) of device `device` and
-// returns cudaGetLastError() as an int: 0 when the launch was accepted.
+// returns a CUDA error code as an int: 0 when the launch was accepted.
 // The calling thread's current device is restored before returning.
 // Pointers must be device pointers; samples 8-byte and out 16-byte
-// aligned; w_frames * blocks_h * blocks_w > 0.
-int mj423_encode_window(const void* samples, const void* quants, void* out,
-                        int w_frames, int blocks_h, int blocks_w, int device,
+// aligned; w_frames * blocks_h * blocks_w > 0.  The grid is at most `slots`
+// thread blocks (mj423_encode_window_slots: what the card holds at once),
+// each of which walks the window.
+int mj423_encode_window(const void* samples, const void* quants,
+                        const void* mults, void* out, int w_frames,
+                        int blocks_h, int blocks_w, int slots, int device,
                         void* stream) {
+    if (slots < 1) return static_cast<int>(cudaErrorInvalidValue);
     int prev = 0;
-    cudaError_t err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+    cudaError_t err = mj423::enter_device(device, &prev);
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long plane_blocks =
         static_cast<long long>(w_frames) * blocks_h * blocks_w;
     const long long n_blocks = 3 * plane_blocks;
-    const dim3 block(TILE * LANES);
-    const dim3 grid(static_cast<unsigned>((n_blocks + TILE - 1) / TILE));
-    encode_window_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+    const long long per_tb = THREADS / 8;
+    const long long tiles = (n_blocks + per_tb - 1) / per_tb;
+    const dim3 grid(static_cast<unsigned>(tiles < slots ? tiles : slots));
+    encode_window_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(samples), static_cast<const int16_t*>(quants),
-        static_cast<int16_t*>(out), n_blocks, plane_blocks);
-    err = cudaGetLastError();
-    if (prev != device) {
-        const cudaError_t back = cudaSetDevice(prev);
-        if (err == cudaSuccess) err = back;
-    }
-    return static_cast<int>(err);
+        static_cast<const uint32_t*>(mults), static_cast<int16_t*>(out),
+        n_blocks, plane_blocks);
+    return static_cast<int>(mj423::leave_device(device, prev, cudaGetLastError()));
+}
+
+// Thread blocks of the encode kernel that `device` holds at once (SMs x
+// resident blocks per SM), or minus a CUDA error code.
+int mj423_encode_window_slots(int device) {
+    int prev = 0;
+    cudaError_t err = mj423::enter_device(device, &prev);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, encode_window_kernel, THREADS, 0);
+    err = mj423::leave_device(device, prev, err);
+    return err == cudaSuccess ? sms * per_sm : -static_cast<int>(err);
+}
+
+// Runs the kernel's quantizer on n int16 coefficients against each of the
+// 128 (quant, multiplier) pairs: out (128, n) int16.  Same conventions.
+int mj423_quantize_probe(const void* coefs, const void* quants,
+                         const void* mults, void* out, int n, int device,
+                         void* stream) {
+    int prev = 0;
+    cudaError_t err = mj423::enter_device(device, &prev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((n + 255) / 256, 128);
+    quantize_probe_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int16_t*>(coefs), static_cast<const int16_t*>(quants),
+        static_cast<const uint32_t*>(mults), static_cast<int16_t*>(out), n);
+    return static_cast<int>(mj423::leave_device(device, prev, cudaGetLastError()));
 }
 
 }  // extern "C"

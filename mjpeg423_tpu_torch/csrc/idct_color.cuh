@@ -2,46 +2,33 @@
 // decode kernels, in one place: decode_window.cu (the fused window in its
 // three input layouts) and transform_coefmajor.cu (IDCT + colour on
 // pre-accumulated states) both include this header, so the fixed-point
-// arithmetic cannot drift between them.
+// arithmetic cannot drift between them.  The constants and the descale are
+// fixed_point.cuh, shared with the encode kernel.
 //
 // Replaces _butterfly, _descale and _normalize_rgb of
 // mjpeg423_tpu/ops/transform_pallas.py and the colour lines of its
 // _transform_kernel, which mjpeg423_tpu/ops/transform_fused.py shares.
 //
-// Overflow: signed int32 overflow is undefined in C++ and nvcc has no
-// -fwrapv, while the reference wraps (JAX int32 and the -fwrapv C codec).
-// Adversarial int16 states do overflow the butterfly, so it runs in
-// uint32_t and each descale shifts the int32_t reinterpretation (an
-// arithmetic shift), which reproduces JAX's int32 bit for bit.
+// Instruction mix: on an H100 an IMAD issues to the FMA pipe and add,
+// shift, min/max, permute and select to the ALU pipe, 64 lanes per SM and
+// clock each (scripts/int_pipes.py measures both), and in these kernels the
+// ALU pipe is the fuller one.  So the clamp is one VIMNMX.RELU (DPX), and
+// the colour conversion is seven IMADs, three such clamps and two byte
+// permutes a pixel: every constant offset rides in an IMAD's addend, and
+// the sums are scaled by 4 so that each channel lands in byte 2 of its
+// register, where PRMT picks it up without a shift.
 #pragma once
 #include <cstdint>
 
-namespace mj423 {
+#include "fixed_point.cuh"
 
-constexpr int CONST_BITS = 13;
-constexpr int PASS1_BITS = 2;
-constexpr uint32_t FIX_0_298631336 = 2446;
-constexpr uint32_t FIX_0_390180644 = 3196;
-constexpr uint32_t FIX_0_541196100 = 4433;
-constexpr uint32_t FIX_0_765366865 = 6270;
-constexpr uint32_t FIX_0_899976223 = 7373;
-constexpr uint32_t FIX_1_175875602 = 9633;
-constexpr uint32_t FIX_1_501321110 = 12299;
-constexpr uint32_t FIX_1_847759065 = 15137;
-constexpr uint32_t FIX_1_961570560 = 16069;
-constexpr uint32_t FIX_2_053119869 = 16819;
-constexpr uint32_t FIX_2_562915447 = 20995;
-constexpr uint32_t FIX_3_072711026 = 25172;
+namespace mj423 {
 
 constexpr int COLOR_SHIFT = 14;
 constexpr int C_CR_R = 22970;
 constexpr int C_CR_G = 11700;
 constexpr int C_CB_G = 5638;
 constexpr int C_CB_B = 29032;
-
-__device__ __forceinline__ int32_t descale(uint32_t x, int n) {
-    return static_cast<int32_t>(x + (1u << (n - 1))) >> n;
-}
 
 // One islow butterfly (reference: idct.c:41-180), modular in uint32_t.
 template <int N>
@@ -86,20 +73,28 @@ __device__ __forceinline__ void butterfly(const uint32_t x[8], int32_t out[8]) {
     out[7] = descale(tmp10 - t3, N);
 }
 
-__device__ __forceinline__ int32_t normalize_rgb(int32_t x) {
-    return x < 0 ? 0 : min(x >> COLOR_SHIFT, 255);
+// A pass-2 output as a sample: clamp to 0..255, one instruction.
+__device__ __forceinline__ int32_t clamp_sample(int32_t v) {
+    return __vimin_s32_relu(v, 255);
 }
 
 // Samples of one pixel, each in 0..255 -> the BGRA word b | g<<8 | r<<16
-// (14-bit fixed point; reference: ycbcr_to_rgb.c:26-49).
-__device__ __forceinline__ uint32_t ycbcr_to_bgra(int32_t y, int32_t cb_s, int32_t cr_s) {
-    const int32_t yy = y << COLOR_SHIFT;
-    const int32_t cb = cb_s - 128;
-    const int32_t cr = cr_s - 128;
-    const int32_t r = normalize_rgb(yy + C_CR_R * cr);
-    const int32_t g = normalize_rgb(yy - C_CB_G * cb - C_CR_G * cr);
-    const int32_t b = normalize_rgb(yy + C_CB_B * cb);
-    return static_cast<uint32_t>(b | (g << 8) | (r << 16));
+// (14-bit fixed point; reference: ycbcr_to_rgb.c:26-49).  The reference
+// computes x = (y << 14) + c * (chroma - 128) and x < 0 ? 0 : min(x >> 14,
+// 255) per channel.  Here X = 4x exactly (all terms are below 2^26), the
+// -128 sits in each sum's constant, and min(max(X, 0), 0xFFFFFF) >> 16 is
+// the same channel value: byte 2 of the clamped register, byte 3 zero.
+__device__ __forceinline__ uint32_t ycbcr_to_bgra(int32_t y, int32_t cb, int32_t cr) {
+    constexpr int32_t ONE = 4 << COLOR_SHIFT;
+    const int32_t xr = y * ONE + (-128 * 4 * C_CR_R) + 4 * C_CR_R * cr;
+    const int32_t xg = y * ONE + (128 * 4 * (C_CB_G + C_CR_G)) - 4 * C_CB_G * cb
+                       - 4 * C_CR_G * cr;
+    const int32_t xb = y * ONE + (-128 * 4 * C_CB_B) + 4 * C_CB_B * cb;
+    const uint32_t r = static_cast<uint32_t>(__vimin_s32_relu(xr, 0xFFFFFF));
+    const uint32_t g = static_cast<uint32_t>(__vimin_s32_relu(xg, 0xFFFFFF));
+    const uint32_t b = static_cast<uint32_t>(__vimin_s32_relu(xb, 0xFFFFFF));
+    // bytes: b.2, g.2 | then r.2 and r.3 (zero) on top
+    return __byte_perm(__byte_perm(b, g, 0x0062), r, 0x7610);
 }
 
 }  // namespace mj423

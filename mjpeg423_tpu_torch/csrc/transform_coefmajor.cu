@@ -35,6 +35,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
 #include "idct_color.cuh"
 
 namespace {
@@ -84,7 +85,7 @@ transform_coefmajor_kernel(const int16_t* __restrict__ y,
             row_in[c] = static_cast<uint32_t>(s_ws[p][x * WS_STRIDE + l * 8 + c]);
         butterfly<CONST_BITS + PASS1_BITS + 3>(row_in, pix[p]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) pix[p][j] = min(max(pix[p][j], 0), 255);
+        for (int j = 0; j < 8; ++j) pix[p][j] = clamp_sample(pix[p][j]);
     }
     if (valid) {
 #pragma unroll
@@ -105,20 +106,14 @@ int mj423_transform_coefmajor(const void* y, const void* cb, const void* cr,
                               void* out, long long n_blocks, int device,
                               void* stream) {
     int prev = 0;
-    cudaError_t err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+    cudaError_t err = mj423::enter_device(device, &prev);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 block(TILE, LANES);
     const dim3 grid(static_cast<unsigned>((n_blocks + TILE - 1) / TILE));
     transform_coefmajor_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int16_t*>(y), static_cast<const int16_t*>(cb),
         static_cast<const int16_t*>(cr), static_cast<uint32_t*>(out), n_blocks);
-    err = cudaGetLastError();
-    if (prev != device) {
-        const cudaError_t back = cudaSetDevice(prev);
-        if (err == cudaSuccess) err = back;
-    }
-    return static_cast<int>(err);
+    return static_cast<int>(mj423::leave_device(device, prev, cudaGetLastError()));
 }
 
 }  // extern "C"

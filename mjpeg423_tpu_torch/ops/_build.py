@@ -127,9 +127,11 @@ def load() -> ctypes.CDLL:
             i32 = ctypes.c_int
             lib.mj423_decode_window.argtypes = [
                 ptr, ptr, ptr, ptr, ptr, ptr,
-                i32, i32, i32, i32, i32, i32, ptr,
+                i32, i32, i32, i32, i32, i32, i32, ptr,
             ]
             lib.mj423_decode_window.restype = i32
+            lib.mj423_decode_window_slots.argtypes = [i32]
+            lib.mj423_decode_window_slots.restype = i32
             lib.mj423_decode_window_cm.argtypes = [
                 ptr, ptr, ptr, ptr, ptr, ptr,
                 i32, i32, i32, i32, i32, i32, ptr,
@@ -141,9 +143,15 @@ def load() -> ctypes.CDLL:
             ]
             lib.mj423_decode_window_i8.restype = i32
             lib.mj423_encode_window.argtypes = [
-                ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+                ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
             ]
             lib.mj423_encode_window.restype = i32
+            lib.mj423_encode_window_slots.argtypes = [i32]
+            lib.mj423_encode_window_slots.restype = i32
+            lib.mj423_quantize_probe.argtypes = [
+                ptr, ptr, ptr, ptr, i32, i32, ptr,
+            ]
+            lib.mj423_quantize_probe.restype = i32
             lib.mj423_transform_coefmajor.argtypes = [
                 ptr, ptr, ptr, ptr, ctypes.c_longlong, i32, ptr,
             ]
@@ -154,6 +162,19 @@ def load() -> ctypes.CDLL:
             lib.mj423_max_window.restype = i32
             _LIB = lib
         return _LIB
+
+
+def resident_blocks(lib: ctypes.CDLL, slots_fn, device_index: int,
+                    what: str) -> int:
+    """Thread blocks of a kernel that a card holds at once, from the
+    library's `..._slots` entry point (which returns minus a CUDA error
+    code on failure); raises if the kernel does not fit an SM."""
+    slots = slots_fn(device_index)
+    if slots < 0:
+        check(lib, -slots, f"{what} occupancy")
+    if slots == 0:
+        raise RuntimeError(f"{what} does not fit an SM of cuda:{device_index}")
+    return slots
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

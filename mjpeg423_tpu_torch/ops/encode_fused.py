@@ -15,15 +15,92 @@ changes nothing at all.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from . import encode, transform
+from . import _build, encode, transform
 from .transform_fused import _quants
 
 # Kernel launches made by encode_window_fused (the plain version is not
 # counted).  A run resets it to 0 and reads it back to show that its
 # windows went through the kernel.
 LAUNCHES = 0
+
+
+_MULTS: dict[torch.device, torch.Tensor] = {}
+_SLOTS: dict[torch.device, int] = {}
+
+
+def quant_multipliers(q) -> np.ndarray:
+    """The kernel's stand-in for its quantizer's division, per quant value.
+
+    The quantizer is sign(c) * ((2|c| + q) // (2q)).  For n = 2|c| + q <=
+    65,791 and d = 2q with q in 1..255, n // d == (n * m) >> 32 with
+    m = 2**32 // d + 1: m * d exceeds 2**32 by e <= d, so n * m / 2**32 =
+    n / d + n * e / (d * 2**32), and n * e <= n * d < 2**32 keeps the
+    excess under 1 / d, too little to carry n / d over the next integer.
+    Returns m as uint32, in q's shape."""
+    d = 2 * np.asarray(q).astype(np.uint64)
+    if d.size and (d.min() < 2 or d.max() > 510):
+        raise ValueError("quant values must lie in 1..255")
+    return ((np.uint64(1) << np.uint64(32)) // d + np.uint64(1)).astype(np.uint32)
+
+
+def _mults(device: torch.device) -> torch.Tensor:
+    """(2, 64) multipliers of the [luma, chroma] quant rows as the int32
+    bit patterns of their uint32 values, cached per device."""
+    m = _MULTS.get(device)
+    if m is None:
+        rows = quant_multipliers(_quants(torch.device("cpu")).numpy())
+        m = torch.from_numpy(rows.view(np.int32)).to(device)
+        _MULTS[device] = m
+    return m
+
+
+def _slots(lib, device: torch.device) -> int:
+    """Thread blocks of the kernel that the card holds at once (the cap of
+    its grid), asked of the built kernel once per device."""
+    slots = _SLOTS.get(device)
+    if slots is None:
+        slots = _build.resident_blocks(
+            lib, lib.mj423_encode_window_slots, device.index,
+            "encode_window_fused")
+        _SLOTS[device] = slots
+    return slots
+
+
+def quantize_probe_ref(coefs: torch.Tensor) -> torch.Tensor:
+    """The plain version of quantize_probe, on any device: encode.quantize,
+    which divides."""
+    if coefs.dim() != 1 or coefs.dtype != torch.int16:
+        raise TypeError("coefs must be a 1-D int16 tensor")
+    q = _quants(coefs.device).reshape(128, 1)
+    return encode.quantize(coefs.reshape(1, -1).expand(128, -1), q)
+
+
+def quantize_probe(coefs: torch.Tensor) -> torch.Tensor:
+    """The kernel's quantizer alone: (N,) int16 coefficients -> (128, N)
+    int16, row j quantized by entry j of the flattened [luma, chroma] quant
+    rows.  A CUDA tensor runs the device function the encode kernel calls
+    (multiply-high by quant_multipliers); a CPU tensor runs
+    quantize_probe_ref."""
+    dev = coefs.device
+    if dev.type == "cpu":
+        return quantize_probe_ref(coefs)
+    if coefs.dim() != 1 or coefs.dtype != torch.int16:
+        raise TypeError("coefs must be a 1-D int16 tensor")
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_probe runs on cpu or cuda, not {dev}")
+    lib = _build.load()
+    coefs = coefs.contiguous()
+    out = torch.empty((128, coefs.shape[0]), dtype=torch.int16, device=dev)
+    code = lib.mj423_quantize_probe(
+        coefs.data_ptr(), _quants(dev).data_ptr(), _mults(dev).data_ptr(),
+        out.data_ptr(), coefs.shape[0], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, code, "quantize_probe launch")
+    return out
 
 
 def _check_args(samples, blocks_h: int, blocks_w: int,
@@ -96,8 +173,6 @@ def encode_window_fused(
         )
     if dev.type != "cuda":
         raise ValueError(f"encode_window_fused runs on cpu or cuda, not {dev}")
-    from . import _build
-
     lib = _build.load()
     if not samples.is_contiguous():
         raise ValueError("samples must be contiguous")
@@ -106,8 +181,9 @@ def encode_window_fused(
     out = torch.empty(samples.shape, dtype=torch.int16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.mj423_encode_window(
-        samples.data_ptr(), _quants(dev).data_ptr(), out.data_ptr(),
-        w_frames, blocks_h, blocks_w, dev.index, stream,
+        samples.data_ptr(), _quants(dev).data_ptr(), _mults(dev).data_ptr(),
+        out.data_ptr(), w_frames, blocks_h, blocks_w, _slots(lib, dev),
+        dev.index, stream,
     )
     _build.check(lib, code, "encode_window_fused launch")
     LAUNCHES += 1

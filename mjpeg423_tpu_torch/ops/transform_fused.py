@@ -38,7 +38,10 @@ LAUNCHES = 0
 LAUNCHES_CM = 0
 LAUNCHES_I8 = 0
 
+_TILE = 32  # image blocks per thread block of the decode kernels
+
 _QUANTS: dict[torch.device, torch.Tensor] = {}
+_K1_SLOTS: dict[torch.device, int] = {}
 
 
 def _quants(device: torch.device) -> torch.Tensor:
@@ -51,6 +54,37 @@ def _quants(device: torch.device) -> torch.Tensor:
         )
         _QUANTS[device] = q
     return q
+
+
+def window_chunk_frames(w_frames: int, tiles: int, slots: int) -> int:
+    """Frames of a window that one thread block of K1 decodes.
+
+    The kernel's grid is tiles x ceil(w_frames / chunk).  A chunk that does
+    not start at an I-frame replays the recurrence of the frames since the
+    last one, so the window is split only as far as the card needs it:
+    not at all when the tiles alone give every one of its `slots` (thread
+    blocks it holds at once) a thread block, else into the most chunks
+    that still run as a single wave, in chunks of equal length (the last
+    may be shorter)."""
+    if w_frames < 1 or tiles < 1:
+        raise ValueError(f"empty window: {w_frames} frames, {tiles} tiles")
+    if tiles >= slots:
+        return w_frames
+    chunks = min(w_frames, slots // tiles)
+    return -(-w_frames // chunks)
+
+
+def window_slots(device: torch.device) -> int:
+    """Thread blocks of K1 that the card holds at once (SMs x resident
+    blocks per SM, asked of the built kernel), cached per device."""
+    slots = _K1_SLOTS.get(device)
+    if slots is None:
+        lib = _build.load()
+        slots = _build.resident_blocks(
+            lib, lib.mj423_decode_window_slots, device.index,
+            "decode_window_fused")
+        _K1_SLOTS[device] = slots
+    return slots
 
 
 def _check_fold(blocks_h: int, k: int) -> None:
@@ -215,23 +249,51 @@ def decode_window_fused(
     On a CUDA device this launches the kernel (asynchronously, on the
     current stream); on the CPU it runs decode_window_fused_ref.
     """
-    global LAUNCHES
-    w_frames = _check_args(amps, seg, carry, blocks_h, blocks_w, rows_per_step)
     if amps.device.type == "cpu":
         return decode_window_fused_ref(
             amps, seg, carry, blocks_h=blocks_h, blocks_w=blocks_w,
             raster=raster, rows_per_step=rows_per_step,
         )
+    return _launch_window(
+        amps, seg, carry, blocks_h=blocks_h, blocks_w=blocks_w,
+        raster=raster, rows_per_step=rows_per_step,
+    )
+
+
+def _launch_window(
+    amps: torch.Tensor,
+    seg: torch.Tensor,
+    carry: torch.Tensor,
+    *,
+    blocks_h: int,
+    blocks_w: int,
+    raster: bool = True,
+    rows_per_step: int = 1,
+    chunk_frames: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's launch, CUDA tensors only: decode_window_fused's arguments and
+    result, plus the frames one thread block decodes.  chunk_frames=None is
+    what decode_window_fused passes: window_chunk_frames decides from the
+    geometry and the card.  A hook for tests and measurements, which force
+    other values; the result is the same for every value in 1..W."""
+    global LAUNCHES
+    w_frames = _check_args(amps, seg, carry, blocks_h, blocks_w, rows_per_step)
     lib, frames, new_carry, stream = _prepare_launch(
         "decode_window_fused", {"amps": amps, "seg": seg, "carry": carry},
-        {"amps": 16}, carry, w_frames, blocks_h, blocks_w, raster,
-        rows_per_step,
+        {"amps": 16, "carry": 16}, carry, w_frames, blocks_h, blocks_w,
+        raster, rows_per_step,
     )
+    if chunk_frames is None:
+        chunk_frames = window_chunk_frames(
+            w_frames, -(-blocks_h * blocks_w // _TILE),
+            window_slots(amps.device))
+    elif not 1 <= chunk_frames <= w_frames:
+        raise ValueError(f"chunk_frames {chunk_frames} outside 1..{w_frames}")
     code = lib.mj423_decode_window(
         amps.data_ptr(), seg.data_ptr(), carry.data_ptr(),
         _quants(amps.device).data_ptr(), frames.data_ptr(),
         new_carry.data_ptr(), w_frames, blocks_h, blocks_w, rows_per_step,
-        int(raster), amps.device.index, stream,
+        int(raster), chunk_frames, amps.device.index, stream,
     )
     _build.check(lib, code, "decode_window_fused launch")
     LAUNCHES += 1
