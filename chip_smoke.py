@@ -21,7 +21,8 @@ Phases, each reported on its own lines:
      the ctypes call; 0.03-0.08 ms) counts wherever the card is done first.
      Beside it stands the card's time alone (ms_card): 20 calls of the
      wrapper are captured into one CUDA graph and the replay is timed.
-K1's frame chunks and the encode kernel's quantizer have phases of their own:
+The decode window's frame chunks and walk, and the encode kernel's quantizer,
+have phases of their own:
   3f. the encode kernel's quantizer alone (a high multiply, no division)
      against the plain version's exact division, both on the card: every
      int16 coefficient against all 128 entries of the luma and chroma quant
@@ -31,7 +32,13 @@ K1's frame chunks and the encode kernel's quantizer have phases of their own:
      chunk, a window of one frame, I-frames at the first and at the last
      frame of a chunk, no I-frame at all, a block count that is not a
      multiple of the 32-block tile, each on a random carry: frames and the
-     carry out byte-equal to the plain version;
+     carry out byte-equal to the plain version; then the same windows
+     through the coefficient-major kernel (k*bw odd, and a multiple of 8
+     whose tiles straddle groups) and the int8-packed kernel;
+  3h. a window of more frames than one launch takes (mj423_max_window())
+     through each of the three wrappers, and 2 shards of that length through
+     decode_transform_sharded3 and decode_transform_sharded_cm: byte-equal
+     to the plain versions, one launch a sub-window;
 The other two input layouts of the decode window have their own phases:
   3c. the coefficient-major kernel (row folds 1 and 2) and the int8-packed
      kernel against their plain PyTorch versions on the card, at 640x480
@@ -39,7 +46,9 @@ The other two input layouts of the decode window have their own phases:
      amplitudes (for the int8 kernel: full-range int16 DC and a nonzero
      ac[..., 0], which it must ignore), a leading P-frame on a random
      carry: frames and carry byte-equal, and the coefficient-major blocked
-     output equal to the block-major kernel's with the same fold;
+     output equal to the block-major kernel's with the same fold; before
+     them, block counts that leave a ragged tile, with k*bw odd, even and a
+     multiple of 8 that straddles groups, on full-range amplitudes;
   4c. the same main path with DecodeConfig(coef_major=True) and with
      DecodeConfig(pack_i8=True) on phase 4's clips: byte-equal to phase 4's
      plain CPU frames, each window through the kernel of its parse layout;
@@ -280,15 +289,11 @@ def main() -> int:
     from mjpeg423_tpu_torch.runtime import DecodeConfig, DecodePipeline, Profiler
     from mjpeg423_tpu_torch.tools.timing import time_card, time_per_call
 
-    counters = ("LAUNCHES", "LAUNCHES_CM", "LAUNCHES_I8")
-
     def reset_counts() -> None:
-        for c in counters:
-            setattr(tf, c, 0)
-        tc.LAUNCHES_K5 = 0
+        tf.COUNTS.reset()
+        tc.COUNTS.reset()
 
-    def read_counts() -> dict:
-        return {c: getattr(tf, c) for c in counters}
+    read_counts = tf.COUNTS.read
 
     failures: list[str] = []
     dev = torch.device("cuda", 0)
@@ -309,12 +314,25 @@ def main() -> int:
     _build.load()
     print(f"[build] {time.perf_counter() - t0:.2f} s -> "
           f"{_build.BUILD / _build.LIB_NAME}")
-    log = _build.BUILD / "ptxas.log"
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] ptxas: {line.strip()}")
-    sys.stdout.flush()
+    ptxas = _build.ptxas_report()
+    for name, r in ptxas.items():
+        print(f"[build] ptxas: {r['registers']} registers, {r['spill_bytes']} "
+              f"bytes of spills: {name[-70:]}")
+    lib = _build.load()
+    # Registers, spills and dynamic shared memory of the decode window's
+    # three instantiations (the library's layout numbers 0, 1, 2).
+    decode_build = {}
+    for key, layout, mangled in (("k1", 0, "BlockMajor"), ("k2", 1, "CoefMajorILi16"),
+                                 ("k3", 2, "PackedI8")):
+        found = [r for name, r in ptxas.items()
+                 if "decode_window_kernel" in name and mangled in name]
+        decode_build[key] = {**found[0], "dynamic_smem_bytes":
+                             lib.mj423_decode_window_smem(layout)}
+        # Four thread blocks an SM need 64 registers; K1 keeps them unspilled.
+        if len(found) != 1 or found[0]["registers"] > 64 or \
+                (key == "k1" and found[0]["spill_bytes"]):
+            failures.append(f"build: {mangled} {found}")
+    print(f"[build] decode window: {json.dumps(decode_build)}", flush=True)
 
     # ---- 3. kernel vs plain version on the card --------------------------
     rng = np.random.default_rng(423)
@@ -404,6 +422,7 @@ def main() -> int:
     # multiple of the 32-block tile.
     slots = tf.window_slots(dev)
     chunk_plan = {}
+    lay_chunk_plan = {}
     for gname, (h, w) in GEOMS.items():
         tiles = -(-(h // 8) * (w // 8) // 32)
         c = tf.window_chunk_frames(W, tiles, slots)
@@ -411,6 +430,13 @@ def main() -> int:
                              "slots": slots}
         print(f"[k1-chunks] {gname} W={W}: {tiles} tiles on {slots} resident "
               f"thread blocks -> chunks of {c} frames, grid {tiles} x {-(-W // c)}")
+        for lname in ("cm", "i8"):
+            ls = tf.window_slots(dev, lname)
+            c = tf.window_chunk_frames(W, tiles, ls)
+            lay_chunk_plan.setdefault(lname, {})[gname] = {
+                "chunk_frames": c, "grid": [tiles, -(-W // c)], "slots": ls}
+            print(f"[{lname}-chunks] {gname} W={W}: {tiles} tiles on {ls} resident "
+                  f"thread blocks -> chunks of {c} frames, grid {tiles} x {-(-W // c)}")
     chunk_cases = [
         (60, 80, 20, None, ()), (60, 80, 20, None, (7, 13)),
         (60, 80, 20, None, (6, 14, 19)), (60, 80, 17, 5, (5, 9)),
@@ -450,8 +476,171 @@ def main() -> int:
                                 f"chunk={used} raster={raster}")
         del amps, fk, fp
 
-    # ---- 3c. coefficient-major and int8-packed kernels vs plain ------------
+    # The same windows through K2 and K3 with their frame chunks forced or
+    # planned: a window without an I-frame makes every chunk replay from the
+    # carry, I-frames off the chunk seams make some replay from inside the
+    # window.  K2's fold is 3 where it divides blocks_h: k*bw = 240 (a
+    # multiple of 8 whose tiles straddle groups) and 27, else 1: 81 (odd).
     cm_err = i8_err = 0
+    for lname in ("cm", "i8"):
+        lay_slots = tf.window_slots(dev, lname)
+        for bh, bw, wn, force, iframes in chunk_cases:
+            nb = bh * bw
+            amps = torch.from_numpy(rng.integers(
+                -32768, 32768, size=(3, wn, nb, 64), dtype=np.int16)).to(dev)
+            carry = torch.from_numpy(rng.integers(
+                -32768, 32768, size=(3, nb, 64), dtype=np.int16)).to(dev)
+            seg_np = np.zeros(wn, dtype=bool)
+            seg_np[list(iframes)] = True
+            seg = torch.from_numpy(seg_np).to(dev)
+            kw = dict(blocks_h=bh, blocks_w=bw)
+            if lname == "cm":
+                k = 3 if bh % 3 == 0 else 1
+                kw["rows_per_step"] = k
+                planes = (tf.carry_to_cm(amps, bh, bw, k),)
+                carry = tf.carry_to_cm(carry, bh, bw, k)
+                launch, ref = tf._launch_window_cm, tf.decode_window_fused_cm_ref
+            else:
+                ac8 = torch.from_numpy(rng.integers(
+                    -128, 128, size=(3, wn, nb, 64), dtype=np.int8)).to(dev)
+                planes = (amps[..., 0].contiguous(), ac8)
+                launch, ref = tf._launch_window_i8, tf.decode_window_fused_i8_ref
+            used = force or tf.window_chunk_frames(wn, -(-nb // 32), lay_slots)
+            for raster in (True, False):
+                fk, ck = launch(*planes, seg, carry, raster=raster,
+                                chunk_frames=force, **kw)
+                torch.cuda.synchronize()
+                fp, cp = ref(*planes, seg, carry, raster=raster, **kw)
+                torch.cuda.synchronize()
+                f_eq, c_eq, err = compare(fk, ck, fp, cp)
+                if lname == "cm":
+                    cm_err = max(cm_err, err)
+                else:
+                    i8_err = max(i8_err, err)
+                ok = f_eq and c_eq
+                print(f"[{lname}-chunks] {bw * 8}x{bh * 8} ({nb} blocks"
+                      f"{', k*bw=' + str(kw['rows_per_step'] * bw) if lname == 'cm' else ''}) "
+                      f"W={wn} chunks of {used} ({'forced' if force else 'planned'}) "
+                      f"seg={''.join('I' if x else 'P' for x in seg_np)} "
+                      f"raster={raster}: frames byte-equal={f_eq} carry byte-equal="
+                      f"{c_eq} max_abs_err={err} {'PASS' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    failures.append(f"{lname}-chunks {bw * 8}x{bh * 8} W={wn} "
+                                    f"chunk={used} raster={raster}")
+            del amps, planes, fk, fp
+
+    # ---- 3h. windows longer than one launch takes ---------------------------
+    # 1,100 frames of 2x4 blocks through each wrapper: two launches (the
+    # kernel's I-frame mask holds mj423_max_window() frames), one output,
+    # the carry handed on; then the sharded entries on 2 x 1,100 frames.
+    long_w = lib.mj423_max_window() + 76
+    amps = torch.from_numpy(rng.integers(
+        -32768, 32768, size=(3, long_w, 8, 64), dtype=np.int16)).to(dev)
+    carry = torch.from_numpy(rng.integers(
+        -32768, 32768, size=(3, 8, 64), dtype=np.int16)).to(dev)
+    seg = torch.from_numpy(rng.random(long_w) < 0.02).to(dev)
+    ac8 = torch.from_numpy(rng.integers(
+        -128, 128, size=(3, long_w, 8, 64), dtype=np.int8)).to(dev)
+    kw = dict(blocks_h=2, blocks_w=4, raster=False)
+    long_cases = {
+        "LAUNCHES": (tf.decode_window_fused, tf.decode_window_fused_ref,
+                     (amps, seg, carry)),
+        "LAUNCHES_CM": (tf.decode_window_fused_cm, tf.decode_window_fused_cm_ref,
+                        (tf.carry_to_cm(amps, 2, 4, 1), seg,
+                         tf.carry_to_cm(carry, 2, 4, 1))),
+        "LAUNCHES_I8": (tf.decode_window_fused_i8, tf.decode_window_fused_i8_ref,
+                        (amps[..., 0].contiguous(), ac8, seg, carry)),
+    }
+    for counter, (fn, ref, args) in long_cases.items():
+        reset_counts()
+        fk, ck = fn(*args, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        fp, cp = ref(*args, **kw)
+        torch.cuda.synchronize()
+        f_eq, c_eq, err = compare(fk, ck, fp, cp)
+        if counter == "LAUNCHES":
+            max_err = max(max_err, err)
+        elif counter == "LAUNCHES_CM":
+            cm_err = max(cm_err, err)
+        else:
+            i8_err = max(i8_err, err)
+        walked = counts[counter] == 2 and sum(counts.values()) == 2
+        ok = f_eq and c_eq and walked
+        print(f"[long-window] {fn.__name__} W={long_w} (a launch takes "
+              f"{lib.mj423_max_window()}): launches {counts}, frames byte-equal="
+              f"{f_eq} carry byte-equal={c_eq} max_abs_err={err} "
+              f"{'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"long-window {fn.__name__}")
+    from mjpeg423_tpu_torch.parallel import (
+        decode_transform_sharded3, decode_transform_sharded_cm,
+    )
+    amps2 = torch.cat([amps, amps.flip(1)], dim=1).cpu().numpy()
+    seg2 = np.concatenate([seg.cpu().numpy(), seg.cpu().numpy()])
+    seg2[[0, long_w]] = True  # both shards start at an I-frame
+    for fn, arg, counter in (
+            (decode_transform_sharded3, amps2, "LAUNCHES"),
+            (decode_transform_sharded_cm, tf.to_cm(amps2, 2, 4, 1), "LAUNCHES_CM")):
+        kw = dict(blocks_h=2, blocks_w=4, raster=True)
+        reset_counts()
+        got = fn(arg, seg2, mesh=make_mesh(2, 1, devices=[dev] * 2), **kw).numpy()
+        counts = read_counts()
+        want = fn(arg, seg2, mesh=make_mesh(2, 1, devices=["cpu"] * 2), **kw).numpy()
+        same = got.shape == want.shape == (2 * long_w, 16, 32) and \
+            np.array_equal(got, want)
+        ok = same and counts[counter] == 4 and sum(counts.values()) == 4
+        print(f"[long-window] {fn.__name__} 2 shards x {long_w} frames on a "
+              f"mesh that repeats the card: launches {counts}, byte-equal to "
+              f"the CPU mesh's plain decode={same} {'PASS' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"long-window {fn.__name__}")
+    del amps, ac8, amps2, fk, fp
+
+    # ---- 3c. coefficient-major and int8-packed kernels vs plain ------------
+    # First where the block count leaves a ragged tile (63, 60, 200 and 4,941
+    # blocks), with K2's k*bw odd (21, 81: 2-byte copies), even (10: 4-byte)
+    # and a multiple of 8 whose tiles straddle groups (40: 16-byte).
+    for bh, bw, k in ((9, 7, 3), (6, 10, 1), (5, 40, 1), (61, 81, 1)):
+        nb = bh * bw
+        amps = torch.from_numpy(rng.integers(
+            -32768, 32768, size=(3, 9, nb, 64), dtype=np.int16)).to(dev)
+        carry = torch.from_numpy(rng.integers(
+            -32768, 32768, size=(3, nb, 64), dtype=np.int16)).to(dev)
+        seg = torch.from_numpy(rng.random(9) < 0.25).to(dev)
+        ac8 = torch.from_numpy(rng.integers(
+            -128, 128, size=(3, 9, nb, 64), dtype=np.int8)).to(dev)
+        runs = {
+            "cm": (tf.decode_window_fused_cm, tf.decode_window_fused_cm_ref,
+                   (tf.carry_to_cm(amps, bh, bw, k), seg,
+                    tf.carry_to_cm(carry, bh, bw, k)), dict(rows_per_step=k)),
+            "i8": (tf.decode_window_fused_i8, tf.decode_window_fused_i8_ref,
+                   (amps[..., 0].contiguous(), ac8, seg, carry), {}),
+        }
+        for lname, (fn, ref, args, fold) in runs.items():
+            for raster in (True, False):
+                kw = dict(blocks_h=bh, blocks_w=bw, raster=raster, **fold)
+                fk, ck = fn(*args, **kw)
+                torch.cuda.synchronize()
+                fp, cp = ref(*args, **kw)
+                torch.cuda.synchronize()
+                f_eq, c_eq, err = compare(fk, ck, fp, cp)
+                if lname == "cm":
+                    cm_err = max(cm_err, err)
+                else:
+                    i8_err = max(i8_err, err)
+                ok = f_eq and c_eq
+                print(f"[{lname}-kernel-vs-plain] {bw * 8}x{bh * 8} full-range "
+                      f"({nb} blocks, {nb % 32} past the last full tile"
+                      f"{', k*bw=' + str(k * bw) if lname == 'cm' else ''}) "
+                      f"raster={raster}: frames byte-equal={f_eq} carry "
+                      f"byte-equal={c_eq} max_abs_err={err} "
+                      f"{'PASS' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    failures.append(f"{lname}-kernel-vs-plain {bw * 8}x{bh * 8} "
+                                    f"raster={raster}")
     lay_inputs = {}
     for gname, (h, w) in GEOMS.items():
         bh, bw = h // 8, w // 8
@@ -639,7 +828,7 @@ def main() -> int:
 
     # ---- 4b. encode path ---------------------------------------------------
     variants = [(ov, i8) for ov in (True, False) for i8 in (False, True)]
-    ef.LAUNCHES = 0
+    ef.COUNTS.reset()
     card_mpg = {}
     for gname, (mpg, _want, nf, src) in clips.items():
         for ov, i8 in variants:
@@ -862,6 +1051,7 @@ def main() -> int:
             "i8_plain": time_per_call(lambda: tf.decode_window_fused_i8_ref(
                 dc, ac8, seg, carry, **kw), reps=10),
             "bm": time_per_call(lambda: tf.decode_window_fused(amps, seg, carry, **kw)),
+            "bm_card": time_card(lambda: tf.decode_window_fused(amps, seg, carry, **kw)),
         }
         lay_timing[gname] = t
         print(f"[lay-time] {gname} W={W} blocked k=1, ms/window around one "
@@ -870,7 +1060,7 @@ def main() -> int:
               f"({t['cm_plain'] / t['cm']:.2f}x); i8 kernel {t['i8']:.4f} "
               f"({t['i8_card']:.4f}) plain {t['i8_plain']:.4f} "
               f"({t['i8_plain'] / t['i8']:.2f}x); block-major kernel in the "
-              f"same phase {t['bm']:.4f}", flush=True)
+              f"same phase {t['bm']:.4f} ({t['bm_card']:.4f})", flush=True)
 
     lay_e2e = {}
     for name, (cfg, _counter, _probe) in layouts.items():
@@ -984,6 +1174,7 @@ def main() -> int:
         "raster_ms_card": hd_t[3],
         "raster_ms_card_640x480": sd_t[3],
         "chunks": chunk_plan,
+        **decode_build["k1"],
         "e2e_frames_per_s": e2e,
         "sharded_launches": sharded_launches["LAUNCHES"],
     }, {
@@ -1005,6 +1196,9 @@ def main() -> int:
         "max_abs_err": cm_err,
         **measured("k2", lay_times(lay_hd, "cm"), lay_times(lay_sd, "cm")),
         "shape": f"W={W} 1920x1088 blocked k=1",
+        "chunks": lay_chunk_plan["cm"],
+        **decode_build["k2"],
+        "ms_card_same_phase_k1": [lay_hd["bm_card"], lay_sd["bm_card"]],
         "e2e_frames_per_s": lay_e2e["coef_major"],
         "sharded_launches": sharded_launches["LAUNCHES_CM"],
     }, {
@@ -1016,6 +1210,9 @@ def main() -> int:
         "max_abs_err": i8_err,
         **measured("k3", lay_times(lay_hd, "i8"), lay_times(lay_sd, "i8")),
         "shape": f"W={W} 1920x1088 blocked",
+        "chunks": lay_chunk_plan["i8"],
+        **decode_build["k3"],
+        "ms_card_same_phase_k1": [lay_hd["bm_card"], lay_sd["bm_card"]],
         "e2e_frames_per_s": lay_e2e["pack_i8"],
     }, {
         "name": "transform_coefmajor",

@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -125,22 +126,18 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr = ctypes.c_void_p
             i32 = ctypes.c_int
-            lib.mj423_decode_window.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr,
-                i32, i32, i32, i32, i32, i32, i32, ptr,
-            ]
+            # pointers; frames, plane frames, blocks_h, blocks_w, fold,
+            # raster, chunk frames, device; stream
+            lib.mj423_decode_window.argtypes = [*[ptr] * 6, *[i32] * 8, ptr]
             lib.mj423_decode_window.restype = i32
-            lib.mj423_decode_window_slots.argtypes = [i32]
+            lib.mj423_decode_window_slots.argtypes = [i32, i32]
             lib.mj423_decode_window_slots.restype = i32
-            lib.mj423_decode_window_cm.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr,
-                i32, i32, i32, i32, i32, i32, ptr,
-            ]
+            lib.mj423_decode_window_smem.argtypes = [i32]
+            lib.mj423_decode_window_smem.restype = i32
+            lib.mj423_decode_window_cm.argtypes = [*[ptr] * 6, *[i32] * 8, ptr]
             lib.mj423_decode_window_cm.restype = i32
-            lib.mj423_decode_window_i8.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                i32, i32, i32, i32, i32, ptr,
-            ]
+            # the same with two input pointers and no fold
+            lib.mj423_decode_window_i8.argtypes = [*[ptr] * 7, *[i32] * 7, ptr]
             lib.mj423_decode_window_i8.restype = i32
             lib.mj423_encode_window.argtypes = [
                 ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
@@ -162,6 +159,23 @@ def load() -> ctypes.CDLL:
             lib.mj423_max_window.restype = i32
             _LIB = lib
         return _LIB
+
+
+def ptxas_report() -> dict[str, dict[str, int]]:
+    """ptxas's report of the last build, from _build/ptxas.log: the mangled
+    name of each kernel -> {"registers": n, "spill_bytes": stores + loads}."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in (BUILD / "ptxas.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {"registers": 0, "spill_bytes": 0}
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def resident_blocks(lib: ctypes.CDLL, slots_fn, device_index: int,

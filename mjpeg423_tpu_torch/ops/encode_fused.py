@@ -19,12 +19,15 @@ import numpy as np
 import torch
 
 from . import _build, encode, transform
+from ._counters import LaunchCounts
 from .transform_fused import _quants
 
 # Kernel launches made by encode_window_fused (the plain version is not
-# counted).  A run resets it to 0 and reads it back to show that its
-# windows went through the kernel.
-LAUNCHES = 0
+# counted).  A run resets it to 0 (COUNTS.reset()) and reads it back
+# (COUNTS.get("LAUNCHES"), or the module attribute LAUNCHES) to show that
+# its windows went through the kernel.
+COUNTS = LaunchCounts("LAUNCHES")
+__getattr__ = COUNTS.module_getattr(__name__)
 
 
 _MULTS: dict[torch.device, torch.Tensor] = {}
@@ -163,7 +166,6 @@ def encode_window_fused(
     On a CUDA device this launches the kernel (asynchronously, on the
     current stream); on the CPU it runs encode_window_fused_ref.
     """
-    global LAUNCHES
     w_frames = _check_args(samples, blocks_h, blocks_w, rows_per_step)
     dev = samples.device
     if dev.type == "cpu":
@@ -186,5 +188,5 @@ def encode_window_fused(
         dev.index, stream,
     )
     _build.check(lib, code, "encode_window_fused launch")
-    LAUNCHES += 1
+    COUNTS.add("LAUNCHES")
     return out

@@ -32,11 +32,14 @@ from __future__ import annotations
 import torch
 
 from . import _build, transform
+from ._counters import LaunchCounts
 
 # Kernel launches made by transform_coefmajor (the plain version is not
-# counted).  A run resets it to 0 and reads it back to show that its states
-# went through K5.
-LAUNCHES_K5 = 0
+# counted).  A run resets it to 0 (COUNTS.reset()) and reads it back
+# (COUNTS.get("LAUNCHES_K5"), or the module attribute LAUNCHES_K5) to show
+# that its states went through K5.
+COUNTS = LaunchCounts("LAUNCHES_K5")
+__getattr__ = COUNTS.module_getattr(__name__)
 
 
 def _check_states(y, cb, cr) -> int:
@@ -75,7 +78,6 @@ def transform_coefmajor(
     On a CUDA device this launches the kernel (asynchronously, on that
     device's current stream); on the CPU it runs transform_coefmajor_ref.
     """
-    global LAUNCHES_K5
     n = _check_states(y, cb, cr)
     dev = y.device
     if dev.type == "cpu":
@@ -94,7 +96,7 @@ def transform_coefmajor(
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, code, "transform_coefmajor launch")
-    LAUNCHES_K5 += 1
+    COUNTS.add("LAUNCHES_K5")
     return out
 
 

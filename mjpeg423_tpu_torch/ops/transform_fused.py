@@ -9,10 +9,18 @@ fold k = rows_per_step):
   decode_window_fused_i8  int16 DC (3, W, B) + int8 AC (3, W, B, 64)    K3
 
 A CUDA tensor launches the hand-written kernel in csrc/decode_window.cu
-(one body for the three layouts); a CPU tensor runs the plain PyTorch
-version, decode_window_fused_ref, built from ops/transform.py, after the
-cm and i8 inputs are laid out block-major.  Nothing falls back from one to
-the other: any other device raises, and so does a failed build or launch.
+(one frame loop, instantiated for the three layouts); a CPU tensor runs the
+plain PyTorch version, decode_window_fused_ref, built from ops/transform.py,
+after the cm and i8 inputs are laid out block-major.  Nothing falls back
+from one to the other: any other device raises, and so does a failed build
+or launch.
+
+A window may have any length.  One launch takes at most the kernel's
+mj423_max_window() frames (its I-frame mask lives in shared memory), so a
+longer window is walked in sub-windows (_walk_window): one output tensor,
+one launch a sub-window writing its slice, the carry handed from launch to
+launch.  WINDOW_CAP forces a smaller cap, on the CPU too, where tests
+drive the same walk through the plain versions.
 
 The codec has no weights.  Its state is the quant tables (core/tables.py)
 and the int16 coefficient carry, which
@@ -22,6 +30,9 @@ pack_amps_i8 are the JAX module's host-side layout helpers, copied here.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
@@ -29,19 +40,48 @@ from ..core import tables as T
 from ..native import centropy
 
 from . import _build, transform
+from ._counters import LaunchCounts
 
 # Kernel launches made by each wrapper (the plain versions are not counted):
 # K1 decode_window_fused, K2 decode_window_fused_cm, K3 decode_window_fused_i8.
-# A run resets them to 0 and reads them back to show which kernel decoded
-# its windows.
-LAUNCHES = 0
-LAUNCHES_CM = 0
-LAUNCHES_I8 = 0
+# A run resets them to 0 (COUNTS.reset()) and reads them back (COUNTS.read(),
+# or the module attributes LAUNCHES, LAUNCHES_CM, LAUNCHES_I8) to show which
+# kernel decoded its windows.  A walked window adds one per sub-window.
+COUNTS = LaunchCounts("LAUNCHES", "LAUNCHES_CM", "LAUNCHES_I8")
+__getattr__ = COUNTS.module_getattr(__name__)
+
+# Frames one launch (on the CPU: one call of a plain version) may take.
+# None: the built kernel's mj423_max_window() on CUDA, no limit on the CPU.
+WINDOW_CAP: int | None = None
 
 _TILE = 32  # image blocks per thread block of the decode kernels
 
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """One instantiation of the decode kernel: the wrapper's name, its
+    launch counter, the library's number for it and its entry point,
+    whether that takes a fold (rows_per_step), and the alignment its input
+    planes need (the carry needs `carry_align`)."""
+    name: str
+    counter: str
+    index: int
+    entry: str
+    takes_fold: bool
+    plane_align: tuple[int, ...]
+    carry_align: int
+
+
+_BM = _Layout("decode_window_fused", "LAUNCHES", 0, "mj423_decode_window",
+              True, (16,), 16)
+_CM = _Layout("decode_window_fused_cm", "LAUNCHES_CM", 1,
+              "mj423_decode_window_cm", True, (2,), 2)
+_I8 = _Layout("decode_window_fused_i8", "LAUNCHES_I8", 2,
+              "mj423_decode_window_i8", False, (2, 8), 16)
+_LAYOUTS = {"bm": _BM, "cm": _CM, "i8": _I8}
+
 _QUANTS: dict[torch.device, torch.Tensor] = {}
-_K1_SLOTS: dict[torch.device, int] = {}
+_SLOTS: dict[tuple[torch.device, int], int] = {}
 
 
 def _quants(device: torch.device) -> torch.Tensor:
@@ -57,7 +97,7 @@ def _quants(device: torch.device) -> torch.Tensor:
 
 
 def window_chunk_frames(w_frames: int, tiles: int, slots: int) -> int:
-    """Frames of a window that one thread block of K1 decodes.
+    """Frames of a window that one thread block of a decode kernel decodes.
 
     The kernel's grid is tiles x ceil(w_frames / chunk).  A chunk that does
     not start at an I-frame replays the recurrence of the frames since the
@@ -74,16 +114,21 @@ def window_chunk_frames(w_frames: int, tiles: int, slots: int) -> int:
     return -(-w_frames // chunks)
 
 
-def window_slots(device: torch.device) -> int:
-    """Thread blocks of K1 that the card holds at once (SMs x resident
-    blocks per SM, asked of the built kernel), cached per device."""
-    slots = _K1_SLOTS.get(device)
+def window_slots(device: torch.device, layout: str = "bm") -> int:
+    """Thread blocks of a decode kernel that the card holds at once (SMs x
+    resident blocks per SM, asked of the built instantiation for `layout`:
+    "bm" K1, "cm" K2, "i8" K3), cached per device and layout."""
+    return _slots(device, _LAYOUTS[layout])
+
+
+def _slots(device: torch.device, lay: _Layout) -> int:
+    slots = _SLOTS.get((device, lay.index))
     if slots is None:
         lib = _build.load()
         slots = _build.resident_blocks(
-            lib, lib.mj423_decode_window_slots, device.index,
-            "decode_window_fused")
-        _K1_SLOTS[device] = slots
+            lib, functools.partial(lib.mj423_decode_window_slots, lay.index),
+            device.index, lay.name)
+        _SLOTS[(device, lay.index)] = slots
     return slots
 
 
@@ -156,34 +201,96 @@ def _check_args_i8(dc, ac8, seg, carry, blocks_h: int, blocks_w: int) -> int:
     return w_frames
 
 
-def _prepare_launch(name: str, tensors: dict, aligned: dict, carry,
-                    w_frames: int, blocks_h: int, blocks_w: int,
-                    raster: bool, k: int):
-    """What every launch needs past the shape checks: a CUDA device, the
-    built library, contiguous and aligned inputs, and the outputs.
-    Returns (lib, frames, new_carry in the carry's layout, stream)."""
+def _frames_shape(blocks_h: int, blocks_w: int, raster: bool, k: int) -> tuple:
+    """One frame of the output: raster (H, width), or blocked
+    (8[outcol], bh/k, 8[row], k*bw)."""
+    if raster:
+        return (blocks_h * 8, blocks_w * 8)
+    return (8, blocks_h // k, 8, k * blocks_w)
+
+
+def _walk_window(w_frames: int, cap: int, carry: torch.Tensor,
+                 frame_shape: tuple, step) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode a window of any length in sub-windows of at most `cap`
+    frames.  step(lo, hi, carry, out) decodes frames [lo, hi) from `carry`
+    into `out`, the (hi - lo, *frame_shape) slice of the one output tensor,
+    and returns the carry after frame hi - 1, which the next step takes.
+    Returns (frames, the last step's carry)."""
+    if cap < 1:
+        raise ValueError(f"window cap {cap} < 1")
+    frames = torch.empty((w_frames, *frame_shape), dtype=torch.uint32,
+                         device=carry.device)
+    for lo in range(0, w_frames, cap):
+        hi = min(lo + cap, w_frames)
+        carry = step(lo, hi, carry, frames[lo:hi])
+    return frames, carry
+
+
+def _walk_plain(ref, planes: tuple, seg, carry, frame_shape: tuple, **kw):
+    """The CPU path of the three wrappers: the plain version `ref` on the
+    whole window, or walked like a launch's where WINDOW_CAP is shorter."""
+    w_frames = seg.shape[0]
+    if WINDOW_CAP is None or w_frames <= WINDOW_CAP:
+        return ref(*planes, seg, carry, **kw)
+
+    def step(lo, hi, c, out):
+        f, c = ref(*(t[:, lo:hi] for t in planes), seg[lo:hi], c, **kw)
+        out.view(torch.int32).copy_(f.view(torch.int32))
+        return c
+
+    return _walk_window(w_frames, WINDOW_CAP, carry, frame_shape, step)
+
+
+def _launch(lay: _Layout, planes: tuple, seg, carry, *, blocks_h: int,
+            blocks_w: int, raster: bool, k: int, chunk_frames: int | None):
+    """Launch the kernel of `lay` on a checked window, CUDA tensors only.
+    planes: the input tensors with the frame axis second; k: the fold.
+    chunk_frames=None lets window_chunk_frames decide the frames one thread
+    block decodes from the geometry and the card; a forced value is a hook
+    for tests and measurements, the result the same for every one in 1..W.
+    Returns (frames, new_carry in the carry's layout)."""
     dev = carry.device
     if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+        raise ValueError(f"{lay.name} runs on cpu or cuda, not {dev}")
     lib = _build.load()
-    if w_frames > lib.mj423_max_window():
-        raise ValueError(
-            f"window of {w_frames} frames exceeds the kernel's "
-            f"{lib.mj423_max_window()}"
-        )
-    for tname, t in tensors.items():
+    w_frames = seg.shape[0]
+    for t, nbytes in ((seg, 1), (carry, lay.carry_align),
+                      *zip(planes, lay.plane_align)):
         if not t.is_contiguous():
-            raise ValueError(f"{tname} must be contiguous")
-    for tname, nbytes in aligned.items():
-        if tensors[tname].data_ptr() % nbytes:
-            raise ValueError(f"{tname} must be {nbytes}-byte aligned")
-    if raster:
-        shape = (w_frames, blocks_h * 8, blocks_w * 8)
-    else:
-        shape = (w_frames, 8, blocks_h // k, 8, k * blocks_w)
-    frames = torch.empty(shape, dtype=torch.uint32, device=dev)
-    new_carry = torch.empty_like(carry)
-    return lib, frames, new_carry, torch.cuda.current_stream(dev).cuda_stream
+            raise ValueError(f"{lay.name}: every input must be contiguous")
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{lay.name}: an input of {t.dtype} is not "
+                             f"{nbytes}-byte aligned")
+    if chunk_frames is not None and not 1 <= chunk_frames <= w_frames:
+        raise ValueError(f"chunk_frames {chunk_frames} outside 1..{w_frames}")
+    cap = lib.mj423_max_window()
+    if WINDOW_CAP is not None:
+        cap = min(cap, WINDOW_CAP)
+    tiles = -(-blocks_h * blocks_w // _TILE)
+    slots = _slots(dev, lay)
+    entry = getattr(lib, lay.entry)
+    fold = (k,) if lay.takes_fold else ()
+    quants = _quants(dev).data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def step(lo, hi, c, out):
+        n = hi - lo
+        chunk = (window_chunk_frames(n, tiles, slots) if chunk_frames is None
+                 else min(chunk_frames, n))
+        new_carry = torch.empty_like(c)
+        code = entry(
+            *(t.data_ptr() + lo * t.stride(1) * t.element_size()
+              for t in planes),
+            seg.data_ptr() + lo, c.data_ptr(), quants, out.data_ptr(),
+            new_carry.data_ptr(), n, w_frames, blocks_h, blocks_w, *fold,
+            int(raster), chunk, dev.index, stream,
+        )
+        _build.check(lib, code, f"{lay.name} launch")
+        COUNTS.add(lay.counter)
+        return new_carry
+
+    return _walk_window(w_frames, cap, carry,
+                        _frames_shape(blocks_h, blocks_w, raster, k), step)
 
 
 def _raster_to_blocked(frames: torch.Tensor, blocks_h: int, blocks_w: int,
@@ -250,10 +357,12 @@ def decode_window_fused(
     current stream); on the CPU it runs decode_window_fused_ref.
     """
     if amps.device.type == "cpu":
-        return decode_window_fused_ref(
-            amps, seg, carry, blocks_h=blocks_h, blocks_w=blocks_w,
-            raster=raster, rows_per_step=rows_per_step,
-        )
+        _check_args(amps, seg, carry, blocks_h, blocks_w, rows_per_step)
+        return _walk_plain(
+            decode_window_fused_ref, (amps,), seg, carry,
+            _frames_shape(blocks_h, blocks_w, raster, rows_per_step),
+            blocks_h=blocks_h, blocks_w=blocks_w, raster=raster,
+            rows_per_step=rows_per_step)
     return _launch_window(
         amps, seg, carry, blocks_h=blocks_h, blocks_w=blocks_w,
         raster=raster, rows_per_step=rows_per_step,
@@ -272,32 +381,12 @@ def _launch_window(
     chunk_frames: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's launch, CUDA tensors only: decode_window_fused's arguments and
-    result, plus the frames one thread block decodes.  chunk_frames=None is
-    what decode_window_fused passes: window_chunk_frames decides from the
-    geometry and the card.  A hook for tests and measurements, which force
-    other values; the result is the same for every value in 1..W."""
-    global LAUNCHES
-    w_frames = _check_args(amps, seg, carry, blocks_h, blocks_w, rows_per_step)
-    lib, frames, new_carry, stream = _prepare_launch(
-        "decode_window_fused", {"amps": amps, "seg": seg, "carry": carry},
-        {"amps": 16, "carry": 16}, carry, w_frames, blocks_h, blocks_w,
-        raster, rows_per_step,
-    )
-    if chunk_frames is None:
-        chunk_frames = window_chunk_frames(
-            w_frames, -(-blocks_h * blocks_w // _TILE),
-            window_slots(amps.device))
-    elif not 1 <= chunk_frames <= w_frames:
-        raise ValueError(f"chunk_frames {chunk_frames} outside 1..{w_frames}")
-    code = lib.mj423_decode_window(
-        amps.data_ptr(), seg.data_ptr(), carry.data_ptr(),
-        _quants(amps.device).data_ptr(), frames.data_ptr(),
-        new_carry.data_ptr(), w_frames, blocks_h, blocks_w, rows_per_step,
-        int(raster), chunk_frames, amps.device.index, stream,
-    )
-    _build.check(lib, code, "decode_window_fused launch")
-    LAUNCHES += 1
-    return frames, new_carry
+    result, plus the frames one thread block decodes (see _launch).  A hook
+    for tests and measurements."""
+    _check_args(amps, seg, carry, blocks_h, blocks_w, rows_per_step)
+    return _launch(_BM, (amps,), seg, carry, blocks_h=blocks_h,
+                   blocks_w=blocks_w, raster=raster, k=rows_per_step,
+                   chunk_frames=chunk_frames)
 
 
 def to_cm(amps, blocks_h: int, blocks_w: int, rows_per_step: int = 1):
@@ -372,28 +461,37 @@ def decode_window_fused_cm(
     the same k.  A CUDA tensor launches the kernel, a CPU tensor runs
     decode_window_fused_cm_ref.
     """
-    global LAUNCHES_CM
-    w_frames = _check_args_cm(amps_cm, seg, carry_cm, blocks_h, blocks_w,
-                              rows_per_step)
     if amps_cm.device.type == "cpu":
-        return decode_window_fused_cm_ref(
-            amps_cm, seg, carry_cm, blocks_h=blocks_h, blocks_w=blocks_w,
-            raster=raster, rows_per_step=rows_per_step,
-        )
-    lib, frames, new_carry, stream = _prepare_launch(
-        "decode_window_fused_cm",
-        {"amps_cm": amps_cm, "seg": seg, "carry_cm": carry_cm}, {}, carry_cm,
-        w_frames, blocks_h, blocks_w, raster, rows_per_step,
+        _check_args_cm(amps_cm, seg, carry_cm, blocks_h, blocks_w,
+                       rows_per_step)
+        return _walk_plain(
+            decode_window_fused_cm_ref, (amps_cm,), seg, carry_cm,
+            _frames_shape(blocks_h, blocks_w, raster, rows_per_step),
+            blocks_h=blocks_h, blocks_w=blocks_w, raster=raster,
+            rows_per_step=rows_per_step)
+    return _launch_window_cm(
+        amps_cm, seg, carry_cm, blocks_h=blocks_h, blocks_w=blocks_w,
+        raster=raster, rows_per_step=rows_per_step,
     )
-    code = lib.mj423_decode_window_cm(
-        amps_cm.data_ptr(), seg.data_ptr(), carry_cm.data_ptr(),
-        _quants(amps_cm.device).data_ptr(), frames.data_ptr(),
-        new_carry.data_ptr(), w_frames, blocks_h, blocks_w, rows_per_step,
-        int(raster), amps_cm.device.index, stream,
-    )
-    _build.check(lib, code, "decode_window_fused_cm launch")
-    LAUNCHES_CM += 1
-    return frames, new_carry
+
+
+def _launch_window_cm(
+    amps_cm: torch.Tensor,
+    seg: torch.Tensor,
+    carry_cm: torch.Tensor,
+    *,
+    blocks_h: int,
+    blocks_w: int,
+    raster: bool = True,
+    rows_per_step: int = 1,
+    chunk_frames: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's launch, CUDA tensors only, with its frame chunks as
+    _launch_window has K1's."""
+    _check_args_cm(amps_cm, seg, carry_cm, blocks_h, blocks_w, rows_per_step)
+    return _launch(_CM, (amps_cm,), seg, carry_cm, blocks_h=blocks_h,
+                   blocks_w=blocks_w, raster=raster, k=rows_per_step,
+                   chunk_frames=chunk_frames)
 
 
 def pack_amps_i8(amps):
@@ -447,27 +545,35 @@ def decode_window_fused_i8(
     CUDA tensor launches the kernel, a CPU tensor runs
     decode_window_fused_i8_ref.
     """
-    global LAUNCHES_I8
-    w_frames = _check_args_i8(dc, ac8, seg, carry, blocks_h, blocks_w)
     if dc.device.type == "cpu":
-        return decode_window_fused_i8_ref(
-            dc, ac8, seg, carry, blocks_h=blocks_h, blocks_w=blocks_w,
-            raster=raster,
-        )
-    lib, frames, new_carry, stream = _prepare_launch(
-        "decode_window_fused_i8",
-        {"dc": dc, "ac8": ac8, "seg": seg, "carry": carry}, {"ac8": 8},
-        carry, w_frames, blocks_h, blocks_w, raster, 1,
+        _check_args_i8(dc, ac8, seg, carry, blocks_h, blocks_w)
+        return _walk_plain(
+            decode_window_fused_i8_ref, (dc, ac8), seg, carry,
+            _frames_shape(blocks_h, blocks_w, raster, 1),
+            blocks_h=blocks_h, blocks_w=blocks_w, raster=raster)
+    return _launch_window_i8(
+        dc, ac8, seg, carry, blocks_h=blocks_h, blocks_w=blocks_w,
+        raster=raster,
     )
-    code = lib.mj423_decode_window_i8(
-        dc.data_ptr(), ac8.data_ptr(), seg.data_ptr(), carry.data_ptr(),
-        _quants(dc.device).data_ptr(), frames.data_ptr(),
-        new_carry.data_ptr(), w_frames, blocks_h, blocks_w, int(raster),
-        dc.device.index, stream,
-    )
-    _build.check(lib, code, "decode_window_fused_i8 launch")
-    LAUNCHES_I8 += 1
-    return frames, new_carry
+
+
+def _launch_window_i8(
+    dc: torch.Tensor,
+    ac8: torch.Tensor,
+    seg: torch.Tensor,
+    carry: torch.Tensor,
+    *,
+    blocks_h: int,
+    blocks_w: int,
+    raster: bool = True,
+    chunk_frames: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's launch, CUDA tensors only, with its frame chunks as
+    _launch_window has K1's."""
+    _check_args_i8(dc, ac8, seg, carry, blocks_h, blocks_w)
+    return _launch(_I8, (dc, ac8), seg, carry, blocks_h=blocks_h,
+                   blocks_w=blocks_w, raster=raster, k=1,
+                   chunk_frames=chunk_frames)
 
 
 def blocked_to_raster_host(

@@ -2,7 +2,7 @@
 """End-to-end decode and encode rates of one checkout on one NVIDIA GPU, for
 comparing two trees within one call on one machine:
 
-    python3 mjpeg423_tpu_torch/scripts/e2e_rates.py [--root DIR] [--runs N]
+    python3 mjpeg423_tpu_torch/scripts/e2e_rates.py [--root DIR] [--runs N] [--no-encode]
 
 Imports mjpeg423_tpu_torch and chip_smoke from DIR (default: the tree the
 script lies in), makes chip_smoke.py's two clips from its seed, and prints
@@ -11,7 +11,8 @@ DecodePipeline.decode_array in the default, coef_major and pack_i8
 configurations and of encode_frames_device, at both geometries, with the
 card's name and power limit.  Host clocks spread 1.1-1.7x between machines
 and calls, so run the trees in turn (parent, change, change, parent) and
-compare within the call only.
+compare within the call only; scripts/e2e_pairs.py does that for many
+alternating pairs.  --no-encode leaves the encode rates out.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--no-encode", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
     import torch
@@ -66,6 +68,8 @@ def main() -> int:
             pipe.warmup(w, h)
             out[f"decode {name} {gname}"] = rate(
                 lambda: pipe.decode_array(mpg), nf, args.runs)
+        if args.no_encode:
+            continue
         out[f"encode {gname}"] = rate(
             lambda: encode_frames_device(src, max_i_interval=gop), nf,
             max(args.runs // 2, 1))

@@ -269,12 +269,58 @@ def test_decode_window_frame_chunks_on_card(cuda, bh, bw, w, force, iframes):
         assert torch.equal(ck, cp)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["cm", "i8"])
+@pytest.mark.parametrize("bh,bw,w,force,iframes", CHUNK_CASES)
+def test_cm_and_i8_window_frame_chunks_on_card(cuda, layout, bh, bw, w, force, iframes):
+    """The same cases through the coefficient-major kernel (folds whose
+    k*bw is odd, 27 and 81, and a multiple of 8 that straddles groups, 240)
+    and the int8-packed one: frames and the carry out byte-equal to the
+    plain version on a random carry, one launch each."""
+    rng = np.random.default_rng(bh * 1000 + w * 10 + len(iframes) + len(layout))
+    nb = bh * bw
+    amps = torch.from_numpy(rng.integers(-32768, 32768, (3, w, nb, 64), dtype=np.int16)).to(cuda)
+    carry = torch.from_numpy(rng.integers(-32768, 32768, (3, nb, 64), dtype=np.int16)).to(cuda)
+    seg_np = np.zeros(w, dtype=bool)
+    seg_np[list(iframes)] = True
+    seg = torch.from_numpy(seg_np).to(cuda)
+    kw = dict(blocks_h=bh, blocks_w=bw)
+    if layout == "cm":
+        k = 3 if bh % 3 == 0 else 1
+        kw["rows_per_step"] = k
+        planes = (tf.carry_to_cm(amps, bh, bw, k),)
+        carry = tf.carry_to_cm(carry, bh, bw, k)
+        launch, ref, counter = tf._launch_window_cm, tf.decode_window_fused_cm_ref, "LAUNCHES_CM"
+    else:
+        ac8 = torch.from_numpy(rng.integers(-128, 128, (3, w, nb, 64), dtype=np.int8)).to(cuda)
+        planes = (amps[..., 0].contiguous(), ac8)
+        launch, ref, counter = tf._launch_window_i8, tf.decode_window_fused_i8_ref, "LAUNCHES_I8"
+    for raster in (True, False):
+        launches = tf.COUNTS.get(counter)
+        fk, ck = launch(*planes, seg, carry, chunk_frames=force, raster=raster, **kw)
+        torch.cuda.synchronize()
+        assert tf.COUNTS.get(counter) == launches + 1
+        fp, cp = ref(*planes, seg, carry, raster=raster, **kw)
+        assert torch.equal(fk.view(torch.int32), fp.view(torch.int32))
+        assert torch.equal(ck, cp)
+
+
 def test_launch_window_is_for_cuda_tensors_only():
     amps = torch.zeros((3, 2, 6, 64), dtype=torch.int16)
     with pytest.raises(ValueError, match="cuda"):
         tf._launch_window(amps, torch.zeros(2, dtype=torch.bool),
                          torch.zeros((3, 6, 64), dtype=torch.int16),
                          blocks_h=2, blocks_w=3)
+    with pytest.raises(ValueError, match="cuda"):
+        tf._launch_window_cm(tf.carry_to_cm(amps, 2, 3, 1),
+                            torch.zeros(2, dtype=torch.bool),
+                            torch.zeros((3, 2, 64, 3), dtype=torch.int16),
+                            blocks_h=2, blocks_w=3)
+    with pytest.raises(ValueError, match="cuda"):
+        tf._launch_window_i8(amps[..., 0].contiguous(), amps.to(torch.int8),
+                            torch.zeros(2, dtype=torch.bool),
+                            torch.zeros((3, 6, 64), dtype=torch.int16),
+                            blocks_h=2, blocks_w=3)
 
 
 @pytest.mark.cuda
