@@ -75,6 +75,28 @@ The sharded decode path (parallel/) and its kernel have their own phases:
      byte-equal to phase 4's frames from the single-device pipeline, with
      the launch counts of each run;
   5e. that kernel against its plain version (CUDA events).
+The user-facing shell (runtime/live.py, serve.py, playback.py, cli.py,
+codec/decoder.py) has its own phases, on phase 4's two clips at full
+geometry, each output byte-equal to phase 4's frames (tolerance 0) and each
+path's kernel launches counted from 0 just before it (shell_launches):
+  6a. decode_live in the three layouts, fed by LiveWriter in 4,096-byte
+     writes over a real os.pipe() and, with resync=True, by a feed that
+     dies mid-frame and reconnects inside a later frame: one launch of the
+     layout's kernel a window;
+  6b. StreamPool on cuda:0, on cuda:0 twice (and on two cards where the
+     machine has them): decode_all on 4 streams, decode_all_live on 2
+     feeds, decode_all_packed(iframes_only=True); launches = the sum of
+     the streams' windows;
+  6c. Player unpaced, fast-forward and rewind by one GOP onto I-frames,
+     and play_live on a pipe;
+  6d. the CLI in this process: decode --npy, thumbs --scale 4 (against
+     phase 4d), encode from the .npy (bytes of the host encoder), transcode
+     (decodes to the same frames), info --verify, selftest, serve; the
+     module entry once in a subprocess; and the port's NumPy decoder
+     (codec/decoder.decode_stream_array) on the 640x480 clip;
+  6e. decode_live against decode_array frames/s in alternating pairs, the
+     pool's aggregate frames/s with one pipeline against two on one card,
+     the thumbnail farm's wall time and the CLI decode's wall time.
 The encode path has its own phases beside these:
   3b. the fused encode-window kernel (FDCT + quantize) against its plain
      PyTorch version on the card at 640x480 and 1920x1088, W=16, random
@@ -269,6 +291,417 @@ def compare(fk, ck, fp, cp) -> tuple[bool, bool, int]:
         err = max(int((as_u64(fk) - as_u64(fp)).abs().max()),
                   int((ck.int() - cp.int()).abs().max()))
     return f_eq, c_eq, err
+
+
+def _windows(frames: int, w: int) -> int:
+    return -(-frames // w)
+
+
+def _pipe_feed(mpg: bytes, chunk: int):
+    """A real os.pipe() that a thread fills through runtime.LiveWriter in
+    `chunk`-byte writes; returns (the read end as a file, the thread)."""
+    import os
+    import threading
+
+    from mjpeg423_tpu_torch.core import format as fmt
+    from mjpeg423_tpu_torch.runtime import LiveWriter
+
+    hdr = fmt.FileHeader.unpack(mpg)
+    r, w = os.pipe()
+
+    class Chunked:
+        def __init__(self, f):
+            self.f = f
+
+        def write(self, b):
+            for i in range(0, len(b), chunk):
+                self.f.write(b[i:i + chunk])
+
+    def run():
+        with open(w, "wb") as f:
+            LiveWriter(Chunked(f), hdr.width, hdr.height).write_container(mpg)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return open(r, "rb"), th
+
+
+def _reconnection(mpg: bytes, want: np.ndarray, cut_frame: int):
+    """A live feed that dies 11 bytes into frame cut_frame's header and
+    reconnects 7 bytes before the next I-frame's header (inside the frame
+    before it): (a factory of the iterable of the two sources, the frames
+    resync=True must deliver, the bytes it must drop)."""
+    import io
+
+    from mjpeg423_tpu_torch.core import format as fmt
+    from mjpeg423_tpu_torch.runtime import live_stream_bytes
+
+    index = fmt.index_frames(mpg)
+    live = live_stream_bytes(mpg)
+    # Frame f's header: the same offset in the live feed as in the container.
+    starts = [int(index.plane_off[0, f]) - fmt.FRAME_HEADER_BYTES
+              for f in range(index.num_frames)]
+    cut = starts[cut_frame] + 11
+    nxt = next(f for f in range(cut_frame + 1, index.num_frames)
+               if index.is_iframe[f])
+    resume = starts[nxt] - 7
+    expect = np.concatenate([want[:cut_frame], want[nxt:]])
+    # Dropped: the 11 header bytes before the cut and the 7 after it.
+    return (lambda: iter([io.BytesIO(live[:cut]), io.BytesIO(live[resume:])]),
+            expect, 11 + 7)
+
+
+# The decode layouts the shell phases drive: config and the counter of the
+# kernel every window of phase 4's clips goes through.
+SHELL_LAYOUTS = {
+    "default": ({}, "LAUNCHES"),
+    "coef_major": ({"coef_major": True}, "LAUNCHES_CM"),
+    "pack_i8": ({"pack_i8": True}, "LAUNCHES_I8"),
+}
+SHELL_PAIRS = 5  # alternating pairs of each rate comparison (phase 6e)
+
+
+def shell_phases(dev: torch.device, clips: dict, gops: dict, thumbs_hd,
+                 failures: list) -> dict:
+    """Phases 6a-6e: the user-facing shell on `dev`, on phase 4's clips
+    (gname -> (container, plain CPU frames, frame count, source frames)),
+    every output held byte-for-byte against phase 4's frames and every
+    path's kernel launches counted from 0 just before it (on the CPU,
+    where this is rehearsed, none may launch).  Returns the launch counts
+    by kernel and the rates of 6e."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from mjpeg423_tpu_torch import cli
+    from mjpeg423_tpu_torch.codec import encode_frames, index_frames
+    from mjpeg423_tpu_torch.codec.decoder import decode_stream_array
+    from mjpeg423_tpu_torch.core import format as fmt
+    from mjpeg423_tpu_torch.io import bmp
+    from mjpeg423_tpu_torch.ops import encode_fused as ef, transform_fused as tf
+    from mjpeg423_tpu_torch.runtime import (
+        DecodeConfig, DecodePipeline, Player, RecoveryLog, decode_live_array,
+        live_stream_bytes, play_live,
+    )
+    from mjpeg423_tpu_torch.runtime.serve import StreamPool
+
+    on_card = dev.type == "cuda"
+    w = DecodeConfig().frames_per_batch
+    totals = {"LAUNCHES": 0, "LAUNCHES_CM": 0, "LAUNCHES_I8": 0,
+              "ENCODE_LAUNCHES": 0}
+
+    def check(tag: str, ok: bool, what: str) -> None:
+        print(f"[{tag}] {what} {'PASS' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{tag}: {what[:120]}")
+
+    def counted(fn, windows: int, counter: str = "LAUNCHES"):
+        """fn() with the decode kernels' counts set to 0 just before and
+        read just after: (result, the counts, whether they are `windows`
+        launches of `counter` and no other on the card, none on the CPU)."""
+        tf.COUNTS.reset()
+        out = fn()
+        counts = tf.COUNTS.read()
+        for k, v in counts.items():
+            totals[k] += v
+        want = windows if on_card else 0
+        return out, counts, counts[counter] == sum(counts.values()) == want
+
+    def frames_equal(got: dict, wants: list) -> bool:
+        """{(stream, frame): frame} from a sink against the frames."""
+        return bool(got) and all(np.array_equal(fr, wants[si][fi])
+                                 for (si, fi), fr in got.items())
+
+    def frame_sink(got: dict):
+        def sink(si, win):
+            for j in range(win.count):
+                got[(si, win.start_frame + j)] = win.frames[j]
+        return sink
+
+    # ---- 6a. live ingest ----------------------------------------------------
+    for layout, (cfg, counter) in SHELL_LAYOUTS.items():
+        pipe = DecodePipeline(DecodeConfig(**cfg), device=dev)
+        for gname, (mpg, want, nf, _src) in clips.items():
+            h, wd = GEOMS[gname]
+            pipe.warmup(wd, h)
+            f, th = _pipe_feed(mpg, 4096)
+            with f:
+                got, counts, ok = counted(
+                    lambda: decode_live_array(f, pipeline=pipe),
+                    _windows(nf, w), counter)
+            th.join(timeout=60)
+            same = got.shape == want.shape and np.array_equal(got, want)
+            check("live", same and ok and not th.is_alive(),
+                  f"decode_live {gname} {layout}: LiveWriter over os.pipe() in "
+                  f"4096-byte writes, {got.shape[0]} frames byte-equal to phase "
+                  f"4={same}, launches {counts} (windows {_windows(nf, w)})")
+            sources, expect, dropped = _reconnection(mpg, want, gops[gname] // 2)
+            rec = RecoveryLog()
+            got, counts, ok = counted(
+                lambda: decode_live_array(sources(), pipeline=pipe,
+                                          resync=True, recovery=rec),
+                _windows(expect.shape[0], w), counter)
+            same = got.shape == expect.shape and np.array_equal(got, expect)
+            check("live", same and ok
+                  and rec.gaps == [(gops[gname] // 2, dropped)],
+                  f"decode_live {gname} {layout} resync=True across a "
+                  f"reconnection: {got.shape[0]} frames byte-equal to phase 4's "
+                  f"(before the cut, from the next I-frame)={same}, gaps "
+                  f"{rec.gaps}, launches {counts}")
+
+    # ---- 6b. the pool ---------------------------------------------------
+    names = list(clips)
+    streams = [clips[g][0] for g in names] * 2
+    wants = [clips[g][1] for g in names] * 2
+    card_sets = {"cuda:0": [dev], "cuda:0 twice": [dev, dev]}
+    if on_card and torch.cuda.device_count() >= 2:
+        card_sets["cuda:0, cuda:1"] = [torch.device("cuda", i) for i in (0, 1)]
+    iframes = [index_frames(s).is_iframe for s in streams]
+    for cards, devices in card_sets.items():
+        pool = StreamPool(devices=devices)
+        for gname in names:
+            h, wd = GEOMS[gname]
+            pool.warmup(wd, h)
+        got: dict = {}
+        stats, counts, ok = counted(
+            lambda: pool.decode_all(streams, sink=frame_sink(got)),
+            sum(_windows(len(x), w) for x in iframes))
+        same = frames_equal(got, wants) and len(got) == sum(map(len, iframes))
+        check("pool", same and ok,
+              f"StreamPool({cards}).decode_all 4 streams: {stats.frames} frames "
+              f"byte-equal to phase 4={same}, launches {counts}")
+        got = {}
+        feeds = [io.BytesIO(live_stream_bytes(s)) for s in streams[:2]]
+        stats, counts, ok = counted(
+            lambda: pool.decode_all_live(feeds, sink=frame_sink(got)),
+            sum(_windows(len(x), w) for x in iframes[:2]))
+        same = frames_equal(got, wants) and len(got) == sum(map(len, iframes[:2]))
+        check("pool", same and ok,
+              f"StreamPool({cards}).decode_all_live 2 feeds: {stats.frames} "
+              f"frames byte-equal to phase 4={same}, launches {counts}")
+        # decode_all_packed's windows: each geometry's clips split over the
+        # pipelines, each part's I-frames packed into windows of w.
+        packed = 0
+        for g in names:
+            members = [i for i, s in enumerate(streams) if s is clips[g][0]]
+            n = min(len(devices), len(members))
+            packed += sum(_windows(sum(int(iframes[i].sum()) for i in
+                                       members[j::n]), w) for j in range(n))
+        got = {}
+        stats, counts, ok = counted(
+            lambda: pool.decode_all_packed(streams, sink=frame_sink(got),
+                                           iframes_only=True), packed)
+        n_i = sum(int(x.sum()) for x in iframes)
+        same = frames_equal(got, wants) and len(got) == n_i == stats.frames
+        check("pool", same and ok,
+              f"StreamPool({cards}).decode_all_packed iframes_only 4 streams: "
+              f"{stats.frames} I-frames byte-equal to phase 4={same}, launches "
+              f"{counts} (windows {packed})")
+
+    # ---- 6c. the player -------------------------------------------------
+    for gname, (mpg, want, nf, _src) in clips.items():
+        player = Player(mpg, device=dev)
+        got = {}
+        stats, counts, ok = counted(
+            lambda: player.play(sink=lambda fi, fr: got.__setitem__(fi, fr),
+                                paced=False), _windows(nf, w))
+        same = len(got) == nf == stats.frames_delivered and \
+            frames_equal({(0, k): v for k, v in got.items()}, [want])
+        check("player", same and ok,
+              f"Player {gname} play(paced=False): {stats.frames_delivered} "
+              f"frames byte-equal to phase 4={same}, launches {counts}")
+        starts = player.index.gop_starts()
+        player.SKIP_SECONDS = gops[gname] / player.config.fps  # one GOP
+        player.current_frame = 0
+        ff = player.fast_forward()
+        player.current_frame = nf - 1
+        rw = player.rewind()
+        for name, at in (("fast_forward", ff), ("rewind", rw)):
+            player.current_frame = at
+            got = {}
+            player.play(sink=lambda fi, fr: got.__setitem__(fi, fr),
+                        paced=False, max_frames=2)
+            same = sorted(got) == [at, at + 1] and all(
+                np.array_equal(v, want[k]) for k, v in got.items())
+            check("player", same and at in starts,
+                  f"Player {gname} {name} by one GOP lands on I-frame {at} "
+                  f"(I-frames {starts}), then plays it byte-equal={same}")
+        f, th = _pipe_feed(mpg, 65536)
+        got = {}
+        with f:
+            stats, counts, ok = counted(
+                lambda: play_live(f, sink=lambda fi, fr: got.__setitem__(fi, fr),
+                                  paced=False, device=dev), _windows(nf, w))
+        th.join(timeout=60)
+        same = len(got) == nf == stats.frames_delivered and \
+            frames_equal({(0, k): v for k, v in got.items()}, [want])
+        check("player", same and ok,
+              f"play_live {gname} on os.pipe(): {stats.frames_delivered} of {nf} "
+              f"frames delivered, byte-equal={same}, launches {counts}")
+
+    # ---- 6d. the CLI, in this process -------------------------------------
+    dev_arg = ["--device", dev.type]
+    cli_wall = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for gname, (mpg, want, nf, _src) in clips.items():
+            paths[gname] = os.path.join(tmp, f"{gname}.mpg")
+            with open(paths[gname], "wb") as fh:
+                fh.write(mpg)
+            out = os.path.join(tmp, f"dec-{gname}")
+            t0 = time.perf_counter()
+            rc, counts, ok = counted(
+                lambda: cli.main(["decode", paths[gname], "-o", out, "--npy",
+                                  *dev_arg]), _windows(nf, w))
+            cli_wall[gname] = time.perf_counter() - t0
+            got = np.load(os.path.join(out, "frameframes.npy"))
+            same = rc == 0 and np.array_equal(got, want)
+            check("cli", same and ok,
+                  f"decode {gname} --npy: rc {rc}, frames.npy byte-equal to "
+                  f"phase 4={same}, {cli_wall[gname]:.3f} s, launches {counts}")
+        idx, thumbs = thumbs_hd
+        out = os.path.join(tmp, "thumbs")
+        rc, counts, ok = counted(
+            lambda: cli.main(["thumbs", paths["1920x1088"], "-o", out,
+                              "--scale", "4", *dev_arg]),
+            _windows(len(idx), w))
+        files = sorted(os.listdir(out))
+        same = rc == 0 and files == [f"thumb{i:06d}.bmp" for i in idx] and all(
+            np.array_equal(bmp.read_bmp(os.path.join(out, n)),
+                           bmp.packed_to_rgb(t)) for n, t in zip(files, thumbs))
+        check("cli", same and ok,
+              f"thumbs 1920x1088 --scale 4: rc {rc}, {len(files)} BMPs equal to "
+              f"phase 4d's thumbnails={same}, launches {counts}")
+        mpg_sd, want_sd, nf_sd, _ = clips["640x480"]
+        npy = os.path.join(tmp, "dec-640x480", "frameframes.npy")
+        enc = os.path.join(tmp, "re.mpg")
+        ef.COUNTS.reset()
+        rc = cli.main(["encode", npy, "-o", enc, "--max-i-interval",
+                       str(gops["640x480"]), *dev_arg])
+        n_enc = ef.COUNTS.get("LAUNCHES")
+        totals["ENCODE_LAUNCHES"] += n_enc
+        with open(enc, "rb") as fh:
+            got_mpg = fh.read()
+        host = encode_frames([bmp.packed_to_rgb(f) for f in want_sd],
+                             max_i_interval=gops["640x480"])
+        same = rc == 0 and got_mpg == host
+        check("cli", same and n_enc == (_windows(nf_sd, ENC_W) if on_card else 0),
+              f"encode 640x480 frames.npy: rc {rc}, {len(got_mpg)} bytes "
+              f"identical to the host encode_frames={same}, encode launches "
+              f"{n_enc}")
+        tc_out = os.path.join(tmp, "regop.mpg")
+        rc = cli.main(["transcode", paths["640x480"], "-o", tc_out,
+                       "--max-i-interval", "8"])
+        with open(tc_out, "rb") as fh:
+            regop = fh.read()
+        got = DecodePipeline(device=dev).decode_array(regop)
+        same = rc == 0 and np.array_equal(got, want_sd)
+        check("cli", same and int(index_frames(regop).is_iframe.sum()) >= nf_sd // 8,
+              f"transcode 640x480 --max-i-interval 8: rc {rc}, "
+              f"{int(index_frames(regop).is_iframe.sum())} I-frames, decoded on "
+              f"{dev.type} byte-equal to phase 4={same}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_info = cli.main(["info", paths["1920x1088"], "--verify"])
+        meta = json.loads(buf.getvalue())
+        rc_self = cli.main(["selftest", *dev_arg])
+        rc_serve = cli.main(["serve", *paths.values(), *dev_arg])
+        rc_farm = cli.main(["serve", *paths.values(), "--packed", "--thumbs",
+                            *dev_arg])
+        check("cli", rc_info == rc_self == rc_serve == rc_farm == 0
+              and meta["verify"] == "OK" and meta["num_frames"] == 30,
+              f"info --verify rc {rc_info} ({meta['num_frames']} frames, verify "
+              f"{meta['verify']}), selftest rc {rc_self}, serve rc {rc_serve}, "
+              f"serve --packed --thumbs rc {rc_farm}")
+        res = subprocess.run(
+            [sys.executable, "-m", "mjpeg423_tpu_torch.cli", "info",
+             paths["640x480"]], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        ok = res.returncode == 0 and json.loads(res.stdout)["num_frames"] == nf_sd
+        check("cli", ok, f"python3 -m mjpeg423_tpu_torch.cli info in a "
+              f"subprocess: rc {res.returncode}")
+        t0 = time.perf_counter()
+        oracle = decode_stream_array(mpg_sd)
+        same = np.array_equal(oracle, want_sd)
+        check("oracle", same,
+              f"codec.decoder.decode_stream_array 640x480 (NumPy, host only): "
+              f"{oracle.shape} in {time.perf_counter() - t0:.2f} s, equal to "
+              f"phase 4's frames={same}")
+
+    # ---- 6e. rates of the shell against the pipeline ----------------------
+    rates: dict = {"cli_decode_wall_s": {}}
+
+    def median_span(xs):
+        return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+                "n": len(xs)}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    for gname, (mpg, _want, nf, _src) in clips.items():
+        pipe = DecodePipeline(device=dev)
+        h, wd = GEOMS[gname]
+        pipe.warmup(wd, h)
+        live = live_stream_bytes(mpg)
+        runs = {"decode_array": [], "decode_live": []}
+        fns = {"decode_array": lambda: pipe.decode_array(mpg),
+               "decode_live": lambda: decode_live_array(io.BytesIO(live),
+                                                        pipeline=pipe)}
+        for fn in fns.values():
+            fn()
+        for i in range(SHELL_PAIRS):
+            order = list(fns) if i % 2 == 0 else list(fns)[::-1]
+            for name in order:
+                sync()
+                t0 = time.perf_counter()
+                fns[name]()
+                sync()
+                runs[name].append(nf / (time.perf_counter() - t0))
+        rates[f"frames_per_s {gname}"] = {k: median_span(v) for k, v in runs.items()}
+        print(f"[shell-rate] {gname} frames/s over {SHELL_PAIRS} alternating "
+              f"pairs: " + ", ".join(
+                  f"{k} median {statistics.median(v):.1f} (min {min(v):.1f}, "
+                  f"max {max(v):.1f})" for k, v in runs.items()), flush=True)
+    pools = {"1 pipeline": StreamPool(devices=[dev]),
+             "2 pipelines on one card": StreamPool(devices=[dev, dev])}
+    for pool in pools.values():
+        pool.decode_all(streams)
+    runs = {k: [] for k in pools}
+    farm = []
+    for i in range(SHELL_PAIRS):
+        order = list(pools) if i % 2 == 0 else list(pools)[::-1]
+        for name in order:
+            runs[name].append(pools[name].decode_all(streams).frames_per_s)
+        farm.append(pools["1 pipeline"].decode_all_packed(
+            streams, iframes_only=True).wall_s)
+    rates["pool_decode_all_4_streams_frames_per_s"] = {
+        k: median_span(v) for k, v in runs.items()}
+    rates["farm_decode_all_packed_iframes_wall_s"] = median_span(farm)
+    print(f"[shell-rate] StreamPool.decode_all 4 streams, aggregate frames/s "
+          f"over {SHELL_PAIRS} alternating pairs: " + ", ".join(
+              f"{k} median {statistics.median(v):.1f} (min {min(v):.1f}, max "
+              f"{max(v):.1f})" for k, v in runs.items())
+          + f"; decode_all_packed iframes_only farm wall s median "
+          f"{statistics.median(farm):.4f} (min {min(farm):.4f}, max "
+          f"{max(farm):.4f})", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hd.mpg")
+        with open(path, "wb") as fh:
+            fh.write(clips["1920x1088"][0])
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cli.main(["decode", path, "-o", tmp, "--npy", *dev_arg])
+            walls.append(time.perf_counter() - t0)
+        rates["cli_decode_wall_s"] = {"1920x1088 first": cli_wall["1920x1088"],
+                                      "1920x1088 warm": median_span(walls)}
+        print(f"[shell-rate] CLI decode 1920x1088 --npy wall s: first "
+              f"{cli_wall['1920x1088']:.3f} (phase 6d), then median of 3 "
+              f"{statistics.median(walls):.3f} (min {min(walls):.3f}, max "
+              f"{max(walls):.3f})", flush=True)
+    return {"launches": totals, "rates": rates}
 
 
 def main() -> int:
@@ -1099,6 +1532,9 @@ def main() -> int:
               f"{p_ms / kc_ms:.2f}x; on the card alone {k_ms:.4f} ms",
               flush=True)
 
+    # ---- 6. the user-facing shell: live, pool, player, CLI, oracle --------
+    shell = shell_phases(dev, clips, gops, (idx, thumbs), failures)
+
     loaded = [m for m in sys.modules
               if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib")
               and sys.modules[m] is not None]
@@ -1159,6 +1595,7 @@ def main() -> int:
     # Host-clock seconds of each sharded decode (parse, puts, kernels, gather
     # and host copies), repeated here so the end of the output keeps them.
     print(f"[sharded-summary] wall seconds {json.dumps(sharded_wall_s)}")
+    print(f"[shell-summary] {json.dumps(shell)}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_window_fused",
@@ -1177,6 +1614,7 @@ def main() -> int:
         **decode_build["k1"],
         "e2e_frames_per_s": e2e,
         "sharded_launches": sharded_launches["LAUNCHES"],
+        "shell_launches": shell["launches"]["LAUNCHES"],
     }, {
         "name": "encode_window_fused",
         "route": "cuda",
@@ -1187,6 +1625,7 @@ def main() -> int:
         **measured("k4", enc_hd, enc_sd),
         "shape": f"W={ENC_W} 1920x1088",
         "e2e_frames_per_s": enc_e2e,
+        "shell_launches": shell["launches"]["ENCODE_LAUNCHES"],
     }, {
         "name": "decode_window_fused_cm",
         "route": "cuda",
@@ -1201,6 +1640,7 @@ def main() -> int:
         "ms_card_same_phase_k1": [lay_hd["bm_card"], lay_sd["bm_card"]],
         "e2e_frames_per_s": lay_e2e["coef_major"],
         "sharded_launches": sharded_launches["LAUNCHES_CM"],
+        "shell_launches": shell["launches"]["LAUNCHES_CM"],
     }, {
         "name": "decode_window_fused_i8",
         "route": "cuda",
@@ -1214,6 +1654,7 @@ def main() -> int:
         **decode_build["k3"],
         "ms_card_same_phase_k1": [lay_hd["bm_card"], lay_sd["bm_card"]],
         "e2e_frames_per_s": lay_e2e["pack_i8"],
+        "shell_launches": shell["launches"]["LAUNCHES_I8"],
     }, {
         "name": "transform_coefmajor",
         "route": "cuda",

@@ -21,8 +21,9 @@ frames back to the host and warmup.
   Stage C (host)          device->host transfer, blocked->raster, delivery.
 
 decode() and decode_streams() share one window loop (_window_loop): parse
-look-ahead on a thread pool, the carry-layout switch, put, step, downscale
-and the output ring.
+look-ahead on a thread pool (_parse_ahead), then the device loop (_dispatch):
+the carry-layout switch, put, step, downscale and the output ring.
+runtime/live.py's decode_live feeds _dispatch from its own reader threads.
 
 Every window runs one of three kernels, chosen by the layout its parse
 produced (ops/transform_fused -> csrc/decode_window.cu): block-major K1
@@ -346,25 +347,30 @@ class DecodePipeline:
                      carry_layout: str, scale: int, max_inflight: int,
                      workers: int | None, latency_first: bool = False,
                      halt: Callable[[], bool] | None = None):
-        """The window loop of decode() and decode_streams().
+        """The window loop of decode() and decode_streams(): the parse
+        look-ahead (_parse_ahead) feeding the device loop (_dispatch).
 
         jobs: (key, count, seg) per window, seg the (count,) segment-start
         mask; parse(job) returns the window's parse result.  At most
         max_inflight parses run ahead of the device on `workers` threads.
-        Each window switches the carry to its parse's layout if needed,
-        is padded and put on the device, runs the step (and the downscale)
-        and joins the output ring.  Yields (key, count, frames) as the ring
-        releases them; with latency_first the first window is released
-        before any later one is dispatched.  halt, checked before each
-        dispatch, ends the loop, and what was dispatched is still yielded.
+        Yields (key, count, frames) as _dispatch releases them.
         """
-        cfg = self.config
-        w = cfg.frames_per_batch
-        nb = blocks_h * blocks_w
-        step = self._get_step(blocks_h, blocks_w)
-        downscale = (self._get_downscale(blocks_h, blocks_w, scale)
-                     if scale != 1 else None)
-        ring = max(1, cfg.num_output_buffers)
+        parsed = self._parse_ahead(jobs, parse, max_inflight, workers,
+                                   latency_first)
+        try:
+            yield from self._dispatch(
+                parsed, blocks_h, blocks_w, carry_layout=carry_layout,
+                scale=scale, latency_first=latency_first, halt=halt,
+            )
+        finally:
+            parsed.close()
+
+    @staticmethod
+    def _parse_ahead(jobs, parse, max_inflight: int, workers: int | None,
+                     latency_first: bool):
+        """Yield (key, count, seg, parse result) per job, in order, with up
+        to max_inflight parses running ahead on a thread pool (only the
+        first one until it is taken, with latency_first)."""
         todo = iter(jobs)
         ex = ThreadPoolExecutor(max_workers=workers)
         futs: collections.deque = collections.deque()
@@ -373,39 +379,66 @@ class DecodePipeline:
             for job in itertools.islice(todo, n):
                 futs.append((job, ex.submit(parse, job)))
 
-        carry = self._zero_carry(carry_layout, blocks_h, blocks_w)
-        pending: collections.deque = collections.deque()
-        first = True
         try:
             submit(1 if latency_first else max_inflight)
             while futs:
-                if halt is not None and halt():
-                    break
                 (key, c, seg_c), fut = futs.popleft()
                 amps = fut.result()
                 submit(max_inflight - len(futs))
-                if _layout(amps) != carry_layout:
-                    carry_layout = _layout(amps)
-                    carry = self._carry_cast(carry, carry_layout, blocks_h,
-                                             blocks_w, CM_FOLD)
-                seg = np.zeros(w, dtype=bool)
-                seg[:c] = seg_c
-                with self.profiler.time("device/put"):
-                    dev_amps = self._put_window(amps, c, w, nb)
-                    dev_seg = self._put(seg)
-                with self.profiler.time("device/dispatch"):
-                    frames, carry = step(dev_amps, dev_seg, carry)
-                    if downscale is not None:
-                        frames = downscale(frames)
-                pending.append((key, c, frames))
-                keep = 0 if latency_first and first else ring
-                first = False
-                while len(pending) > keep:
-                    yield pending.popleft()
-            while pending:
-                yield pending.popleft()
+                yield key, c, seg_c, amps
         finally:
             ex.shutdown(wait=False, cancel_futures=True)
+
+    def _dispatch(self, parsed, blocks_h: int, blocks_w: int, *,
+                  carry_layout: str, scale: int, latency_first: bool = False,
+                  halt: Callable[[], bool] | None = None):
+        """The device half of every window loop (decode, decode_streams,
+        runtime.live's decode_live).
+
+        parsed: an iterator of (key, count, seg, parse result); it is
+        advanced only after the previous window was dispatched.  Each window
+        switches the carry to its parse's layout if needed, is padded and
+        put on the device, runs the step (and the downscale) and joins the
+        output ring.  Yields (key, count, frames) as the ring releases them;
+        with latency_first the first window is released before any later
+        one is taken.  halt, checked before each window is taken, ends the
+        loop, and what was dispatched is still yielded.
+        """
+        cfg = self.config
+        w = cfg.frames_per_batch
+        nb = blocks_h * blocks_w
+        step = self._get_step(blocks_h, blocks_w)
+        downscale = (self._get_downscale(blocks_h, blocks_w, scale)
+                     if scale != 1 else None)
+        ring = max(1, cfg.num_output_buffers)
+        carry = self._zero_carry(carry_layout, blocks_h, blocks_w)
+        pending: collections.deque = collections.deque()
+        first = True
+        while halt is None or not halt():
+            item = next(parsed, None)
+            if item is None:
+                break
+            key, c, seg_c, amps = item
+            if _layout(amps) != carry_layout:
+                carry_layout = _layout(amps)
+                carry = self._carry_cast(carry, carry_layout, blocks_h,
+                                         blocks_w, CM_FOLD)
+            seg = np.zeros(w, dtype=bool)
+            seg[:c] = seg_c
+            with self.profiler.time("device/put"):
+                dev_amps = self._put_window(amps, c, w, nb)
+                dev_seg = self._put(seg)
+            with self.profiler.time("device/dispatch"):
+                frames, carry = step(dev_amps, dev_seg, carry)
+                if downscale is not None:
+                    frames = downscale(frames)
+            pending.append((key, c, frames))
+            keep = 0 if latency_first and first else ring
+            first = False
+            while len(pending) > keep:
+                yield pending.popleft()
+        while pending:
+            yield pending.popleft()
 
     def decode(
         self,

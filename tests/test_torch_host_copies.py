@@ -41,11 +41,14 @@ def stream():
     return encode_frames(_clip(), max_i_interval=3)
 
 
-COPIES = [
+# The copies that are the original's text after a header naming it.
+VERBATIM = [
     "core/tables.py", "core/format.py", "native/centropy.py",
-    "native/centropy.c", "utils/config.py", "utils/profile.py",
-    "ops/entropy_ref.py", "ops/encode_ref.py", "ops/transform_ref.py",
+    "native/centropy.c", "ops/entropy_ref.py", "ops/encode_ref.py",
+    "ops/transform_ref.py", "codec/decoder.py", "codec/transcode.py",
+    "io/bmp.py", "io/reader.py", "io/__init__.py", "utils/debug.py",
 ]
+COPIES = VERBATIM + ["utils/config.py", "utils/profile.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -54,17 +57,14 @@ def test_copy_names_its_source_and_commit(rel):
     assert f"Copied from {ORIG}/{rel} at commit bfc8537" in head
 
 
-@pytest.mark.parametrize("rel", [
-    "core/tables.py", "core/format.py", "native/centropy.py",
-    "native/centropy.c", "ops/entropy_ref.py", "ops/encode_ref.py",
-    "ops/transform_ref.py",
-])
+@pytest.mark.parametrize("rel", VERBATIM)
 def test_verbatim_copies_differ_only_in_their_first_lines(rel):
     """These files are the original's text after a header naming it."""
     orig = (ROOT / ORIG / rel).read_text()
     copy = (ROOT / PORT / rel).read_text()
     # One word of one comment in centropy.py's build sweep differs.
     orig = orig.replace("crashed builders", "crashed builds")
+    # A file with no docstring gets a one-line one.
     start = 3 if orig.startswith('"""') else 0
     assert copy.endswith(orig[start:])
     assert len(copy) - len(orig) < 120
@@ -314,3 +314,49 @@ def test_port_profiler_trace_needs_no_jax(tmp_path):
     prof.stop_trace()
     prof.stop_trace()
     assert (tmp_path / "trace.json").stat().st_size > 0
+
+
+@pytest.mark.parametrize("case", ["decode_stream_array", "bmp-round-trip",
+                                  "iter_gops", "regop", "debug-dumps"])
+def test_shell_host_copies(stream, tmp_path, case):
+    """The copies of the NumPy decoder, io, re-GOP and debug helpers give
+    the original's bytes on the same seeded input."""
+    if case == "decode_stream_array":
+        a, b = both("codec.decoder")
+        want = a.decode_stream_array(stream)
+        assert want.shape == (7, 32, 48)
+        np.testing.assert_array_equal(b.decode_stream_array(stream), want)
+    elif case == "bmp-round-trip":
+        a, b = both("io.bmp")
+        frame = b.rgb_to_packed(_clip()[3])
+        paths = [str(tmp_path / "a.bmp"), str(tmp_path / "b.bmp")]
+        a.write_bmp32(paths[0], frame)
+        b.write_bmp32(paths[1], frame)
+        assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
+        np.testing.assert_array_equal(b.read_bmp(paths[0]), a.read_bmp(paths[1]))
+        np.testing.assert_array_equal(b.read_bmp(paths[0]), _clip()[3])
+    elif case == "iter_gops":
+        a, b = both("io.reader")
+        ga = list(a.StreamReader(stream).iter_gops())
+        gb = list(b.StreamReader(stream).iter_gops())
+        assert [(g.gop_index, g.start_frame, g.num_frames) for g in gb] == \
+            [(g.gop_index, g.start_frame, g.num_frames) for g in ga] == \
+            [(0, 0, 3), (1, 3, 3), (2, 6, 1)]
+        assert [f.pack() for g in gb for f in g.frames] == \
+            [f.pack() for g in ga for f in g.frames]
+    elif case == "regop":
+        a, b = both("codec.transcode")
+        for gop in (1, 2, 5):
+            new = b.regop(stream, max_i_interval=gop, window=3)
+            assert new == a.regop(stream, max_i_interval=gop, window=3)
+        np.testing.assert_array_equal(
+            both("codec.decoder")[1].decode_stream_array(new),
+            both("codec.decoder")[0].decode_stream_array(stream))
+    else:
+        a, b = both("utils.debug")
+        blk = np.random.default_rng(25).integers(-99, 99, (8, 8))
+        blk2 = blk.copy()
+        blk2[3, 4] += 1
+        assert b.format_block(blk, "y") == a.format_block(blk, "y")
+        assert b.block_diff(blk, blk2) == a.block_diff(blk, blk2)
+        assert b.format_bitstream(stream[:80], 40) == a.format_bitstream(stream[:80], 40)

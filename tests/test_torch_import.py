@@ -46,6 +46,12 @@ SCRIPTS = {
         import mjpeg423_tpu_torch.runtime
         import mjpeg423_tpu_torch.parallel
         import mjpeg423_tpu_torch.parallel.multihost
+        import mjpeg423_tpu_torch.cli
+        import mjpeg423_tpu_torch.codec.decoder
+        import mjpeg423_tpu_torch.codec.transcode
+        import mjpeg423_tpu_torch.io
+        import mjpeg423_tpu_torch.runtime.serve
+        import mjpeg423_tpu_torch.utils.debug
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "triton")
                and sys.modules[m] is not None]
@@ -140,6 +146,45 @@ SCRIPTS = {
                                             use_pallas=True)
                 assert np.array_equal(got, want), (shape, aligned)
         assert tc.LAUNCHES_K5 == 0  # CPU tensors take the plain version
+    """,
+    "live_pool_cli": """
+        import io, json, os, tempfile, contextlib
+        from mjpeg423_tpu_torch import cli
+        from mjpeg423_tpu_torch.codec import encode_frames
+        from mjpeg423_tpu_torch.codec.decoder import decode_stream_array
+        from mjpeg423_tpu_torch.runtime import (
+            DecodeConfig, decode_live_array, live_stream_bytes)
+        from mjpeg423_tpu_torch.runtime.serve import StreamPool
+        rng = np.random.default_rng(9)
+        base = rng.integers(0, 256, (16, 24, 3))
+        frames = []
+        for t in range(7):
+            f = base.copy()
+            f[t:t + 8, 2 * t:2 * t + 8] = 255
+            frames.append(f.astype(np.uint8))
+        data = encode_frames(frames, max_i_interval=3)
+        want = decode_stream_array(data)
+        for cfg in ({}, dict(coef_major=True), dict(pack_i8=True)):
+            got = decode_live_array(io.BytesIO(live_stream_bytes(data)),
+                                    config=DecodeConfig(frames_per_batch=2, **cfg),
+                                    device="cpu")
+            assert np.array_equal(got, want), cfg
+        seen = {}
+        def sink(si, win):
+            for j in range(win.count):
+                seen[(si, win.start_frame + j)] = win.frames[j]
+        stats = StreamPool(DecodeConfig(frames_per_batch=2),
+                           devices=["cpu", "cpu"]).decode_all([data] * 3, sink=sink)
+        assert stats.frames == 21 and len(seen) == 21
+        assert all(np.array_equal(v, want[fi]) for (si, fi), v in seen.items())
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "a.mpg")
+            open(path, "wb").write(data)
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert cli.main(["info", path, "--verify"]) == 0
+            meta = json.loads(out.getvalue())
+            assert meta["num_frames"] == 7 and meta["verify"] == "OK"
     """,
 }
 
