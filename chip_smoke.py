@@ -97,6 +97,28 @@ path's kernel launches counted from 0 just before it (shell_launches):
   6e. decode_live against decode_array frames/s in alternating pairs, the
      pool's aggregate frames/s with one pipeline against two on one card,
      the thumbnail farm's wall time and the CLI decode's wall time.
+The multi-device layer (runtime/pipeline.py's mesh mode, parallel/encode.py,
+parallel/multihost.py) has its own phases, on phase 4's clips and the
+640x480 clip re-GOPped to an I-frame every 6 frames (codec/transcode.regop),
+over 4x1 and 2x1 meshes that repeat cuda:0 (one stream: a check of the
+sharded code, not a measurement of scaling) and over every card where the
+machine has several; each output byte-equal to phase 4's (tolerance 0),
+each path's launches counted from 0 just before it (mesh_phases):
+  7a. DecodePipeline(mesh=) with the default config and coef_major=True, at
+     the default window and at frames_per_batch=5 (each shard's carry
+     crosses windows mid-GOP): K1 (or K2) launches = the sum over the shards
+     of ceil(frames / window), an empty partition launching nothing;
+  7b. decode_stream_sharded GOP-aligned, which is that pipeline, with its K1
+     count; then [mesh-rate] lines: its wall against the unaligned path's
+     (K5) over 5 alternating pairs, median with min and max;
+  7c. encode_frames_device(mesh=), overlapped and sequential: containers
+     byte-identical to the host encoder's, K4 launches = windows x shards;
+  7d. the CLI's decode --npy --all-devices in this process (one shard a
+     card), and two processes joined through gloo on cuda:0, each decoding
+     its GOP partition (multihost.local_partition): merged frames byte-equal
+     and aggregate_counts equal to the frame count.  The two processes
+     start when phase 4b does and run beside it; 7d collects them.
+"[clock]" lines give the seconds since the start after each group of phases.
 The encode path has its own phases beside these:
   3b. the fused encode-window kernel (FDCT + quantize) against its plain
      PyTorch version on the card at 640x480 and 1920x1088, W=16, random
@@ -704,6 +726,314 @@ def shell_phases(dev: torch.device, clips: dict, gops: dict, thumbs_hd,
     return {"launches": totals, "rates": rates}
 
 
+MESH_PAIRS = 5  # alternating pairs of the [mesh-rate] comparison (phase 7b)
+
+# One process of phase 7d's two-process decode: joins the gloo group, decodes
+# its GOP partition on MJ_DEVICE and saves its frames, launch counts and the
+# clock when it was done.
+_MP_WORKER = r"""
+import os, sys, time
+sys.modules["jax"] = None
+import numpy as np
+import torch.distributed as dist
+from mjpeg423_tpu_torch.core import format as fmt
+from mjpeg423_tpu_torch.ops import transform_fused as tf
+from mjpeg423_tpu_torch.parallel import multihost
+from mjpeg423_tpu_torch.runtime import DecodePipeline
+
+rank, size = multihost.initialize(os.environ["MJ_COORD"], 2,
+                                  int(os.environ["MJ_RANK"]))
+data = open(os.environ["MJ_STREAM"], "rb").read()
+index = fmt.index_frames(data)
+part = multihost.local_partition(index.gop_starts(), index.num_frames)
+pipe = DecodePipeline(device=os.environ["MJ_DEVICE"])
+tf.COUNTS.reset()
+got = pipe.decode_array(data, start_frame=part.frame_lo,
+                        end_frame=part.frame_hi)
+counts = tf.COUNTS.read()
+total = multihost.aggregate_counts(float(got.shape[0]))
+dist.destroy_process_group()
+np.savez(os.environ["MJ_OUT"], lo=part.frame_lo, frames=got, total=total,
+         k1=counts["LAUNCHES"], all=sum(counts.values()), size=size,
+         t_end=time.time())
+print("OK", rank, size, got.shape[0], total)
+"""
+
+
+def start_two_processes(mpg: bytes, dev: torch.device) -> dict:
+    """Start phase 7d's two processes on `mpg` (a gloo group on a free
+    local port, each decoding its GOP partition on `dev`); they need nothing
+    of this process, so main starts them as soon as the clip exists and
+    mesh_phases collects them.  Killed at exit if still running."""
+    import atexit
+    import os
+    import socket
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="mj423_mp_")
+    path = os.path.join(tmp, "hd.mpg")
+    with open(path, "wb") as fh:
+        fh.write(mpg)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        coord = f"localhost:{s.getsockname()[1]}"
+    t0 = time.time()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MJ_COORD=coord, MJ_RANK=str(rank),
+                   MJ_STREAM=path, MJ_DEVICE=str(dev),
+                   MJ_OUT=os.path.join(tmp, f"rank{rank}.npz"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _MP_WORKER], env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return {"tmp": tmp, "path": path, "procs": procs, "t0": t0}
+
+
+def _check(failures: list, tag: str, ok: bool, what: str) -> None:
+    print(f"[{tag}] {what} {'PASS' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        failures.append(f"{tag}: {what[:120]}")
+
+
+def mesh_phases(dev: torch.device, clips: dict, gops: dict,
+                failures: list, workers: dict | None = None) -> dict:
+    """Phases 7a-7d: the multi-device layer through its entry points, on
+    phase 4's clips (gname -> (container, plain CPU frames, frame count,
+    source frames)) and the 640x480 clip re-GOPped to an I-frame every 6
+    frames, over meshes that repeat `dev` 4 and 2 times and over every card
+    where the machine has several.  Every output is held byte-for-byte
+    against phase 4's frames or containers, and every path's kernel
+    launches are counted from 0 just before it (none on the CPU, where this
+    is rehearsed).  workers: 7d's two processes on the 1920x1088 clip,
+    if already started (start_two_processes).  Returns the launch counts by
+    kernel, the [mesh-rate] walls and each run's wall."""
+    import os
+    import shutil
+
+    from mjpeg423_tpu_torch import cli
+    from mjpeg423_tpu_torch.codec import (
+        EncodeConfig, encode_frames_device, index_frames,
+    )
+    from mjpeg423_tpu_torch.codec.transcode import regop
+    from mjpeg423_tpu_torch.ops import (
+        encode_fused as ef, transform_coefmajor as tc, transform_fused as tf,
+    )
+    from mjpeg423_tpu_torch.parallel import decode_stream_sharded, make_mesh
+    from mjpeg423_tpu_torch.parallel.multihost import partition_gops
+    from mjpeg423_tpu_torch.runtime import DecodeConfig, DecodePipeline
+
+    on_card = dev.type == "cuda"
+    totals = {"LAUNCHES": 0, "LAUNCHES_CM": 0, "LAUNCHES_I8": 0,
+              "LAUNCHES_K5": 0, "ENCODE_LAUNCHES": 0}
+    walls: dict = {}
+    t_phase = [time.perf_counter()]
+
+    def clock(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[clock] phase {phase}: {now - t_phase[0]:.1f} s", flush=True)
+        t_phase[0] = now
+
+    def counted(fn):
+        """fn() with the decode kernels' counts set to 0 just before and
+        read just after: (result, seconds, the counts)."""
+        tf.COUNTS.reset()
+        tc.COUNTS.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        counts = {**tf.COUNTS.read(), "LAUNCHES_K5": tc.LAUNCHES_K5}
+        for k, v in counts.items():
+            totals[k] += v
+        return out, dt, counts
+
+    def windows(mpg: bytes, n: int, w: int) -> int:
+        """The mesh pipeline's launches: a window of each partition a step,
+        sum over the shards of ceil(frames_d / w); none on the CPU."""
+        index = index_frames(mpg)
+        parts = partition_gops(index.gop_starts(), index.num_frames, n)
+        return sum(_windows(p.num_frames, w) for p in parts) if on_card else 0
+
+    rep = f"{dev} repeated"
+    meshes = {f"4x1 {rep}": [dev] * 4, f"2x1 {rep}": [dev] * 2}
+    n_cards = torch.cuda.device_count() if on_card else 0
+    if n_cards >= 2:
+        meshes[f"{n_cards}x1 distinct cards"] = [
+            torch.device("cuda", i) for i in range(n_cards)]
+    sd_mpg, sd_want = clips["640x480"][:2]
+    mesh_clips = {g: (c[0], c[1]) for g, c in clips.items()}
+    mesh_clips["640x480 I every 6"] = (regop(sd_mpg, max_i_interval=6), sd_want)
+    n_gops = {g: len(index_frames(m).gop_starts())
+              for g, (m, _) in mesh_clips.items()}
+    print(f"[mesh] clips {json.dumps(n_gops)} GOPs; meshes {list(meshes)}",
+          flush=True)
+
+    # ---- 7a. DecodePipeline(mesh=) ------------------------------------------
+    # Phase 4 built and ran every kernel on this card at both geometries;
+    # the mesh branch of warmup runs once per clip and mesh (every device).
+    for gname, (mpg, want) in mesh_clips.items():
+        h, wd = GEOMS[gname.split()[0]]
+        for mname, devices in meshes.items():
+            mesh = make_mesh(len(devices), 1, devices=devices)
+            for layout, cfg, counter in (
+                    ("default", {}, "LAUNCHES"),
+                    ("coef_major", {"coef_major": True}, "LAUNCHES_CM")):
+                for fpb in (DecodeConfig().frames_per_batch, 5):
+                    pipe = DecodePipeline(
+                        DecodeConfig(frames_per_batch=fpb, **cfg), mesh=mesh)
+                    if layout == "default" and fpb == 5:
+                        pipe.warmup(wd, h)
+                    got, dt, counts = counted(lambda: pipe.decode_array(mpg))
+                    n = windows(mpg, len(devices), fpb)
+                    same = got.shape == want.shape and np.array_equal(got, want)
+                    moved = counts[counter] == sum(counts.values()) == n
+                    walls[f"7a {gname} {mname} {layout} w={fpb}"] = dt
+                    _check(failures, "mesh", same and moved,
+                           f"DecodePipeline(mesh={mname}) {gname} {layout} "
+                           f"frames_per_batch={fpb}: {dt:.3f} s, byte-equal "
+                           f"to phase 4={same}, launches {counts} (expected "
+                           f"{n} {counter})")
+
+    clock("7a")
+
+    # ---- 7b. decode_stream_sharded, GOP-aligned: the mesh pipeline -----------
+    w = DecodeConfig().frames_per_batch
+    for gname, (mpg, want) in mesh_clips.items():
+        for mname, devices in meshes.items():
+            mesh = make_mesh(len(devices), 1, devices=devices)
+            got, dt, counts = counted(
+                lambda: decode_stream_sharded(mpg, mesh, gop_aligned=True))
+            n = windows(mpg, len(devices), w)
+            same = got.shape == want.shape and np.array_equal(got, want)
+            moved = counts["LAUNCHES"] == sum(counts.values()) == n
+            walls[f"7b {gname} {mname}"] = dt
+            _check(failures, "mesh-sharded", same and moved,
+                   f"decode_stream_sharded {gname} mesh {mname} "
+                   f"gop_aligned=True (delegated): {dt:.3f} s, byte-equal to "
+                   f"phase 4={same}, launches {counts} (expected {n} K1)")
+    # Both paths ran on these clips and this card in phases 4e and 7b.
+    rates: dict = {}
+    rate_meshes = {"one card repeated" if on_card else "the CPU repeated":
+                   make_mesh(4, 1, devices=[dev] * 4)}
+    if n_cards >= 4:
+        rate_meshes["4 distinct cards"] = make_mesh(4, 1)
+    for (label, mesh), gname in ((m, g) for m in rate_meshes.items()
+                                 for g in clips):
+        mpg = clips[gname][0]
+        fns = {"gop_aligned (delegated)": lambda: decode_stream_sharded(
+                   mpg, mesh, gop_aligned=True),
+               "unaligned": lambda: decode_stream_sharded(
+                   mpg, mesh, gop_aligned=False)}
+        runs = {k: [] for k in fns}
+        for i in range(MESH_PAIRS):
+            for name in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+                t0 = time.perf_counter()
+                fns[name]()
+                runs[name].append(time.perf_counter() - t0)
+        rates[f"decode_stream_sharded 4x1 {label} {gname} wall s"] = {
+            k: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                "n": len(v)} for k, v in runs.items()}
+        scaling = "" if label == "4 distinct cards" else "; no scaling measured"
+        print(f"[mesh-rate] decode_stream_sharded {gname} mesh 4x1 ({label}"
+              f"{scaling}) wall s over {MESH_PAIRS} alternating "
+              f"pairs: " + ", ".join(
+                  f"{k} median {statistics.median(v):.4f} (min {min(v):.4f}, "
+                  f"max {max(v):.4f})" for k, v in runs.items()), flush=True)
+
+    clock("7b")
+
+    # ---- 7c. encode_frames_device(mesh=) ------------------------------------
+    enc_w = EncodeConfig().frames_per_batch
+    for gname, (mpg, _want, nf, src) in clips.items():
+        for mname, devices in meshes.items():
+            mesh = make_mesh(len(devices), 1, devices=devices)
+            n = len(devices)
+            for overlap in (True, False):
+                ef.COUNTS.reset()
+                t0 = time.perf_counter()
+                got = encode_frames_device(
+                    src, max_i_interval=gops[gname], mesh=mesh,
+                    config=EncodeConfig(overlap_device=overlap))
+                dt = time.perf_counter() - t0
+                launches = ef.COUNTS.get("LAUNCHES")
+                totals["ENCODE_LAUNCHES"] += launches
+                win = max(enc_w, n) // n * n
+                expect = _windows(nf, win) * n if on_card else 0
+                walls[f"7c {gname} {mname} overlap={overlap}"] = dt
+                _check(failures, "mesh-encode",
+                       got == mpg and launches == expect,
+                       f"encode_frames_device(mesh={mname}) {gname} "
+                       f"overlap_device={overlap}: {len(got)} bytes in "
+                       f"{dt:.3f} s, byte-identical to the host encoder="
+                       f"{got == mpg}, K4 launches {launches} (expected "
+                       f"{expect}: {_windows(nf, win)} windows of {win} x {n})")
+
+    clock("7c")
+
+    # ---- 7d. the CLI over every card, and two processes through gloo --------
+    mpg, want, nf, _src = clips["1920x1088"]
+    n_all = max(n_cards, 1)
+    run = workers or start_two_processes(mpg, dev)
+    tmp = run["tmp"]
+    out = os.path.join(tmp, "dec")
+    rc, dt, counts = counted(lambda: cli.main(
+        ["decode", run["path"], "-o", out, "--npy", "--all-devices",
+         "--device", dev.type]))
+    got = np.load(os.path.join(out, "frameframes.npy"))
+    same = rc == 0 and np.array_equal(got, want)
+    n = windows(mpg, n_all, w)
+    walls["7d cli decode --all-devices"] = dt
+    _check(failures, "mesh-cli",
+           same and counts["LAUNCHES"] == sum(counts.values()) == n,
+           f"decode --npy --all-devices --device {dev.type} ({n_all}x1 "
+           f"mesh): rc {rc}, frames.npy byte-equal to phase 4={same}, "
+           f"{dt:.3f} s, launches {counts} (expected {n})")
+    rcs, errs = [], []
+    for p in run["procs"]:
+        try:
+            _out, err = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _out, err = p.communicate()
+        rcs.append(p.returncode)
+        errs.append(err[-500:])
+    merged = np.zeros_like(want)
+    seen, totals_mp, k1, t_end = 0, [], 0, run["t0"]
+    ok = rcs == [0, 0]
+    if ok:
+        for rank in range(2):
+            z = np.load(os.path.join(tmp, f"rank{rank}.npz"))
+            lo, fr = int(z["lo"]), z["frames"]
+            merged[lo:lo + fr.shape[0]] = fr
+            seen += fr.shape[0]
+            totals_mp.append(float(z["total"]))
+            k1 += int(z["k1"])
+            t_end = max(t_end, float(z["t_end"]))
+            ok = ok and int(z["all"]) == int(z["k1"]) and int(z["size"]) == 2
+    shutil.rmtree(tmp, ignore_errors=True)
+    index = index_frames(mpg)
+    n = sum(_windows(p.num_frames, w) for p in partition_gops(
+        index.gop_starts(), nf, 2)) if on_card else 0
+    same = ok and seen == nf and np.array_equal(merged, want)
+    totals["LAUNCHES"] += k1
+    # From the start of the processes to the later one's end: interpreter
+    # and CUDA start-up included, beside whatever this process ran then.
+    dt = t_end - run["t0"]
+    walls["7d two processes"] = dt
+    _check(failures, "multihost",
+           same and totals_mp == [float(nf)] * 2 and k1 == n,
+           f"two processes through gloo on {dev}, each decoding its GOP "
+           f"partition of 1920x1088: rcs {rcs}, {seen} frames merged "
+           f"byte-equal to phase 4={same}, aggregate_counts {totals_mp} "
+           f"(frames {nf}), K1 launches {k1} (expected {n}), "
+           f"{dt:.1f} s from their start"
+           f"{'' if rcs == [0, 0] else ' ' + repr(errs)}")
+    clock("7d")
+    return {"launches": totals, "rates": rates,
+            "walls_s": {k: round(v, 4) for k, v in walls.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -718,6 +1048,7 @@ def main() -> int:
         transform_fused as tf,
     )
     from mjpeg423_tpu_torch.parallel import decode_stream_sharded, make_mesh
+    from mjpeg423_tpu_torch.parallel.multihost import partition_gops
     from mjpeg423_tpu_torch.ops.scale import downscale_raster_host
     from mjpeg423_tpu_torch.runtime import DecodeConfig, DecodePipeline, Profiler
     from mjpeg423_tpu_torch.tools.timing import time_card, time_per_call
@@ -731,6 +1062,10 @@ def main() -> int:
     failures: list[str] = []
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+
+    def clock(phase: str) -> None:
+        print(f"[clock] phases up to {phase}: "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # ---- 1. the card -----------------------------------------------------
     smi = subprocess.run(
@@ -1202,6 +1537,8 @@ def main() -> int:
             failures.append(f"k5-states-vs-plain {gname} {nd}x{nbk}")
         del st, got, want
 
+    clock("3")
+
     # ---- 4. main path ----------------------------------------------------
     clips = {}
     gops = {}
@@ -1258,6 +1595,11 @@ def main() -> int:
               flush=True)
         if not ok:
             failures.append(f"main path {gname}")
+
+    # Phase 7d's two processes start now and run beside phases 4b-4c, which
+    # time nothing that is reported.
+    workers = start_two_processes(clips["1920x1088"][0], dev)
+    clock("4")
 
     # ---- 4b. encode path ---------------------------------------------------
     variants = [(ov, i8) for ov in (True, False) for i8 in (False, True)]
@@ -1352,14 +1694,26 @@ def main() -> int:
         failures.append("decode_streams_arrays scale=2")
 
     # ---- 4e. sharded decode over meshes that repeat the card --------------
-    # (mesh, gop_aligned) -> the kernel every shard must go through.  The
-    # 1920x1088 clip has 3 GOPs, fewer than 4 data shards: its GOP-aligned
-    # 4x1 decode has an empty partition.  30 % 4 != 0: its unaligned decode
-    # pads the frame axis.
+    # (mesh, gop_aligned) -> the kernel every shard must go through: K5 once
+    # a cell unaligned, K1 once a cell GOP-aligned with a block axis, and
+    # GOP-aligned without one (the mesh pipeline) K1 once a window of each
+    # partition.  The 1920x1088 clip has 3 GOPs, fewer than 4 data shards:
+    # its GOP-aligned 4x1 decode has an empty partition.  30 % 4 != 0: its
+    # unaligned decode pads the frame axis.
     sharded_runs = [
         *((m, False, "LAUNCHES_K5") for m in K5_MESHES),
-        ((4, 1), True, "LAUNCHES_CM"), ((2, 2), True, "LAUNCHES"),
+        ((4, 1), True, "LAUNCHES"), ((2, 2), True, "LAUNCHES"),
     ]
+
+    def sharded_launches_expected(mpg: bytes, nd: int, nbk: int,
+                                  aligned: bool) -> int:
+        if not aligned or nbk > 1:
+            return nd * nbk
+        index = index_frames(mpg)
+        return sum(_windows(p.num_frames, DecodeConfig().frames_per_batch)
+                   for p in partition_gops(index.gop_starts(),
+                                           index.num_frames, nd))
+
     sharded_wall_s = {}
     # One card stands in for four; where the machine has four, the same
     # runs follow on four distinct cards (one stream each, real copies).
@@ -1383,17 +1737,19 @@ def main() -> int:
                 sharded_launches[c] += v
             same = got.shape == got_all[gname].shape and \
                 got.dtype == np.uint32 and np.array_equal(got, got_all[gname])
-            moved = counts[counter] == nd * nbk and \
-                sum(counts.values()) == nd * nbk
+            n_exp = sharded_launches_expected(mpg, nd, nbk, aligned)
+            moved = counts[counter] == n_exp and sum(counts.values()) == n_exp
             ok = same and moved
             print(f"[sharded] decode_stream_sharded {gname} mesh {nd}x{nbk} "
                   f"({cards}) gop_aligned={aligned}: {dt:.3f} s, launches {counts}, "
-                  f"one {counter} per shard={moved}, byte-equal to the "
+                  f"{n_exp} {counter}={moved}, byte-equal to the "
                   f"single-device frames={same} {'PASS' if ok else 'FAIL'}",
                   flush=True)
             if not ok:
                 failures.append(
                     f"sharded {gname} {nd}x{nbk} {cards} aligned={aligned}")
+
+    clock("4e")
 
     # ---- 5. timings ------------------------------------------------------
     timing = {}
@@ -1423,7 +1779,7 @@ def main() -> int:
         p2.decode_array(mpg)
         p2.profiler = prof = Profiler()
         runs = []
-        for _ in range(10):
+        for _ in range(5):
             t0 = time.perf_counter()
             p2.decode_array(mpg)
             runs.append(time.perf_counter() - t0)
@@ -1532,8 +1888,14 @@ def main() -> int:
               f"{p_ms / kc_ms:.2f}x; on the card alone {k_ms:.4f} ms",
               flush=True)
 
+    clock("5e")
+
     # ---- 6. the user-facing shell: live, pool, player, CLI, oracle --------
     shell = shell_phases(dev, clips, gops, (idx, thumbs), failures)
+    clock("6")
+
+    # ---- 7. the multi-device layer: mesh pipeline, sharded encode, gloo ----
+    mesh = mesh_phases(dev, clips, gops, failures, workers)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib")
@@ -1596,6 +1958,7 @@ def main() -> int:
     # and host copies), repeated here so the end of the output keeps them.
     print(f"[sharded-summary] wall seconds {json.dumps(sharded_wall_s)}")
     print(f"[shell-summary] {json.dumps(shell)}")
+    print(f"[mesh-summary] {json.dumps(mesh)}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_window_fused",
@@ -1615,6 +1978,7 @@ def main() -> int:
         "e2e_frames_per_s": e2e,
         "sharded_launches": sharded_launches["LAUNCHES"],
         "shell_launches": shell["launches"]["LAUNCHES"],
+        "mesh_launches": mesh["launches"]["LAUNCHES"],
     }, {
         "name": "encode_window_fused",
         "route": "cuda",
@@ -1626,6 +1990,7 @@ def main() -> int:
         "shape": f"W={ENC_W} 1920x1088",
         "e2e_frames_per_s": enc_e2e,
         "shell_launches": shell["launches"]["ENCODE_LAUNCHES"],
+        "mesh_launches": mesh["launches"]["ENCODE_LAUNCHES"],
     }, {
         "name": "decode_window_fused_cm",
         "route": "cuda",
@@ -1641,6 +2006,7 @@ def main() -> int:
         "e2e_frames_per_s": lay_e2e["coef_major"],
         "sharded_launches": sharded_launches["LAUNCHES_CM"],
         "shell_launches": shell["launches"]["LAUNCHES_CM"],
+        "mesh_launches": mesh["launches"]["LAUNCHES_CM"],
     }, {
         "name": "decode_window_fused_i8",
         "route": "cuda",
@@ -1655,6 +2021,7 @@ def main() -> int:
         "ms_card_same_phase_k1": [lay_hd["bm_card"], lay_sd["bm_card"]],
         "e2e_frames_per_s": lay_e2e["pack_i8"],
         "shell_launches": shell["launches"]["LAUNCHES_I8"],
+        "mesh_launches": mesh["launches"]["LAUNCHES_I8"],
     }, {
         "name": "transform_coefmajor",
         "route": "cuda",
@@ -1664,6 +2031,7 @@ def main() -> int:
         "max_abs_err": k5_err,
         **measured("k5", k5_hd, k5_sd),
         "shape": f"N={W * nb_hd} ({W} frames of 1920x1088)",
+        "mesh_launches": mesh["launches"]["LAUNCHES_K5"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,9 +5,9 @@ The counterpart of mjpeg423_tpu/cli.py, copied from it at commit bfc8537,
 with the same commands, arguments and output files.  What differs is the
 device: every command that decodes or encodes runs on "cuda" unless it is
 given --device cpu (or the original's --no-pallas, which means the same),
-and never falls back from one to the other.  decode --all-devices exits 2
-until the port has the mesh-sharded streaming decode; bench waits for the
-port's own bench.
+and never falls back from one to the other.  decode --all-devices shards
+the stream's GOPs over every card (with --device cpu: a one-cell CPU mesh);
+bench waits for the port's own bench.
 
 The reference's UI is four pushbuttons polled by the core0 main loop
 (reference: core0/software/main.c:29-127 — Play/Pause, NextVideo, FF, RW) on
@@ -116,15 +116,21 @@ def cmd_decode(args) -> int:
     from .utils.profile import Profiler
 
     live = args.input == "-"
-    if args.all_devices:
-        print("decode --all-devices: the mesh-sharded streaming decode is "
-              "not ported yet; decode on one device", file=sys.stderr)
+    if args.all_devices and live:
+        print("decode -: live stdin ingest is single-device",
+              file=sys.stderr)
         return 2
     data = None if live else _load_stream(args.input)
     kw = {} if args.batch is None else {"frames_per_batch": args.batch}
     cfg = DecodeConfig(**kw)
     profiler = Profiler()
-    pipe = DecodePipeline(cfg, profiler, device=_device(args))
+    mesh = None
+    if args.all_devices:
+        from .parallel import make_mesh
+
+        mesh = (make_mesh(1, 1, devices=["cpu"]) if _device(args) == "cpu"
+                else make_mesh(n_block=1))
+    pipe = DecodePipeline(cfg, profiler, mesh=mesh, device=_device(args))
     os.makedirs(args.outdir, exist_ok=True)
     t0 = time.perf_counter()
     n = 0
@@ -604,7 +610,8 @@ def main(argv=None) -> int:
                    help="the same as --device cpu")
     p.add_argument("--all-devices", action="store_true",
                    help="GOP-shard the stream over every local card "
-                        "(mesh streaming pipeline; not ported yet: exits 2)")
+                        "(mesh streaming pipeline; with --device cpu a "
+                        "one-cell CPU mesh)")
     p.add_argument("--resilient", action="store_true",
                    help="skip corrupt GOP tails and resync at the next "
                         "I-frame instead of failing (skipped ranges are "

@@ -63,6 +63,7 @@ from ..core.format import (
 from ..native import centropy
 from ..ops import encode_fused, encode_ref, entropy_ref, resolve_device
 from ..ops.transform_ref import raster_to_blocks
+from ..parallel.mesh import data_devices
 from ..utils.config import EncodeConfig
 from ..utils.profile import default_profiler
 
@@ -532,65 +533,106 @@ def _frame_into(q3_out: np.ndarray, fetched, j: int) -> None:
         _, dc, ac8 = fetched
         np.copyto(q3_out, ac8[:, j], casting="unsafe")
         q3_out[..., 0] = dc[:, j]
+    elif fetched[0] == "shards":  # (shards, 3, W / shards, B, 64)
+        q3s = fetched[1]
+        np.copyto(q3_out, q3s[j // q3s.shape[2], :, j % q3s.shape[2]])
     else:
         np.copyto(q3_out, fetched[1][:, j])
 
 
+def _on_stream(dev: torch.device, streams: dict | None):
+    """dev current, on streams[dev] when given (else its current stream);
+    nothing on the CPU."""
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    ctx = contextlib.ExitStack()
+    ctx.enter_context(torch.cuda.device(dev))
+    if streams is not None:
+        ctx.enter_context(torch.cuda.stream(streams[dev]))
+    return ctx
+
+
 def _encode_frames_device_fused(
-    frames_rgb, w, h, nf, max_i_interval, entropy_encode, config, dev,
+    frames_rgb, w, h, nf, max_i_interval, entropy_encode, config, devs,
     profiler=None,
 ) -> bytes:
+    """The device half of encode_frames_device over `devs`: one device, or
+    the data shards of a mesh, each transforming its slice of every
+    window."""
     bh, bw = h // 8, w // 8
     nb = bh * bw
+    n_shards = len(devs)
     W = max(1, min(int(config.frames_per_batch), nf))
+    W = max(W, n_shards) // n_shards * n_shards  # window divisible by shards
+    wd = W // n_shards
     prof = profiler or default_profiler
-    cuda = dev.type == "cuda"
-    use_fetch_i8 = bool(config.fetch_i8)
+    cuda = devs[0].type == "cuda"
+    use_fetch_i8 = bool(config.fetch_i8) and n_shards == 1
 
     def new_stage() -> torch.Tensor:
-        """A (3, W, nb, 64) uint8 host staging window, pinned for CUDA.
-        Every window ships all W frames, so the kernel sees one shape;
-        rows past a short last window's count are stale and ignored."""
-        return torch.empty((3, W, nb, 64), dtype=torch.uint8, pin_memory=cuda)
+        """A (shards, 3, W / shards, nb, 64) uint8 host staging window,
+        pinned for CUDA: shard d's frames are stage[d], contiguous.  Every
+        window ships all W frames, so the kernel sees one shape; rows past
+        a short last window's count are stale and ignored."""
+        return torch.empty((n_shards, 3, wd, nb, 64), dtype=torch.uint8,
+                           pin_memory=cuda)
 
     def convert(stage: np.ndarray, ws: int, count: int, scratch: dict):
         with prof.time("encode/convert"):
             for j in range(count):
                 yb, cbb, crb = _rgb_to_blocked_planes(frames_rgb[ws + j], scratch)
-                stage[0, j] = yb.reshape(nb, 64)
-                stage[1, j] = cbb.reshape(nb, 64)
-                stage[2, j] = crb.reshape(nb, 64)
+                shard = stage[j // wd]
+                shard[0, j % wd] = yb.reshape(nb, 64)
+                shard[1, j % wd] = cbb.reshape(nb, 64)
+                shard[2, j % wd] = crb.reshape(nb, 64)
 
-    def dispatch(stage: torch.Tensor):
-        """Transform one staged window on the current stream and post its
-        copy back.  Returns the payload (done, host, q3): done is the CUDA
-        event after the D2H (None on the CPU), host the landing tensors and
-        q3 the device planes, kept for fetch_i8's whole-window fetch."""
-        q3 = encode_fused.encode_window_fused(
-            stage.to(dev, non_blocking=True), blocks_h=bh, blocks_w=bw
-        )
-        outs = _pack_q3(q3) if use_fetch_i8 else (q3,)
-        keep = q3 if use_fetch_i8 else None
-        if not cuda:
-            return None, outs, keep
-        host = tuple(
-            torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs
-        )
-        for dst, src in zip(host, outs):
-            dst.copy_(src, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return done, host, keep
+    def dispatch(stage: torch.Tensor, streams: dict | None = None):
+        """Transform one staged window, each shard on its device (on
+        streams[device] when given, else that device's current stream), and
+        post the copies back into its slice of one landing tensor.  Returns
+        the payload (events, host, q3): the CUDA event after each shard's
+        D2H (none on the CPU), the landing tensors and, for fetch_i8's
+        whole-window fetch, the device planes."""
+        if use_fetch_i8:
+            with _on_stream(devs[0], streams):
+                q3 = encode_fused.encode_window_fused(
+                    stage[0].to(devs[0], non_blocking=True),
+                    blocks_h=bh, blocks_w=bw,
+                )
+                outs = _pack_q3(q3)
+                if not cuda:
+                    return [], outs, q3
+                host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True) for t in outs)
+                for dst, src in zip(host, outs):
+                    dst.copy_(src, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                return [done], host, q3
+        host = torch.empty(stage.shape, dtype=torch.int16, pin_memory=cuda)
+        events = []
+        for d, dev in enumerate(devs):
+            with _on_stream(dev, streams):
+                q3 = encode_fused.encode_window_fused(
+                    stage[d].to(dev, non_blocking=True),
+                    blocks_h=bh, blocks_w=bw,
+                )
+                host[d].copy_(q3, non_blocking=cuda)
+                if cuda:
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+        return events, (host,), None
 
     def fetch(payload):
-        """Wait for a window and return ('full', q3w) or ('i8', dc, ac8)
-        as host arrays.  The overflow flag is read here, by the consumer,
-        so the producer never waits on the device."""
-        done, host, q3 = payload
-        if done is not None:
+        """Wait for a window and return ('shards', q3s) or ('i8', dc, ac8)
+        (or, when an AC value left int8, ('full', q3w)) as host arrays.
+        The overflow flag is read here, by the consumer, so the producer
+        never waits on the device."""
+        events, host, q3 = payload
+        for done in events:
             done.synchronize()
         if not use_fetch_i8:
-            return ("full", host[0].numpy())
+            return ("shards", host[0].numpy())
         dc, ac8, over = host
         if bool(over):
             return ("full", q3.cpu().numpy())
@@ -642,28 +684,24 @@ def _encode_frames_device_fused(
         def producer():
             err: BaseException | None = None
             try:
-                # The current device and stream are per thread.
-                if cuda:
-                    torch.cuda.set_device(dev)
-                    on_stream = torch.cuda.stream(torch.cuda.Stream(dev))
-                else:
-                    on_stream = contextlib.nullcontext()
+                # A stream of the producer's own on each card it uses.
+                streams = ({dev: torch.cuda.Stream(dev)
+                            for dev in dict.fromkeys(devs)} if cuda else None)
                 scratch: dict = {}
-                with on_stream:
-                    for ws in range(0, nf, W):
-                        count = min(W, nf - ws)
-                        while True:
-                            try:
-                                stage = slot_pool.get(timeout=0.1)
-                                break
-                            except queue.Empty:
-                                if stop.is_set():
-                                    return
-                        convert(stage.numpy(), ws, count, scratch)
-                        with prof.time("encode/device_dispatch"):
-                            payload = dispatch(stage)
-                        if not _put_or_drop((count, stage, payload)):
-                            return
+                for ws in range(0, nf, W):
+                    count = min(W, nf - ws)
+                    while True:
+                        try:
+                            stage = slot_pool.get(timeout=0.1)
+                            break
+                        except queue.Empty:
+                            if stop.is_set():
+                                return
+                    convert(stage.numpy(), ws, count, scratch)
+                    with prof.time("encode/device_dispatch"):
+                        payload = dispatch(stage, streams)
+                    if not _put_or_drop((count, stage, payload)):
+                        return
             except BaseException as e:  # noqa: BLE001 — raised in the consumer
                 err = e
             finally:
@@ -734,12 +772,18 @@ def encode_frames_device(
     PyTorch version and must be asked for by name.  use_pallas, when given,
     must agree with the device (True exactly on CUDA).  parallel_entropy is
     accepted and ignored (the select-then-pack back half packs one frame
-    at a time); mesh= raises NotImplementedError until the multi-device
-    port.
+    at a time).
+
+    mesh= (parallel.make_mesh): each window's frames split over the
+    mesh's "data" axis and every data shard runs K4 on its slice on its
+    own device, with no exchange (the split of
+    parallel/encode.encode_window_fused_sharded), so the window is rounded
+    down to a multiple of the data-axis size, and fetch_i8 is off.  The
+    mesh's devices take the place of `device`: all CUDA (the kernel on
+    each card) or all CPU.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded encode is not ported yet")
-    dev = resolve_device(device, use_pallas)
+    devs = ([resolve_device(device, use_pallas)] if mesh is None
+            else data_devices(mesh, use_pallas))
     config = config or EncodeConfig()
     if max_i_interval is None:
         max_i_interval = config.max_i_interval
@@ -750,5 +794,5 @@ def encode_frames_device(
         raise ValueError(f"dimensions must be multiples of 8, got {w}x{h}")
     return _encode_frames_device_fused(
         frames_rgb, w, h, len(frames_rgb), max_i_interval, entropy_encode,
-        config, dev, profiler=profiler,
+        config, devs, profiler=profiler,
     )

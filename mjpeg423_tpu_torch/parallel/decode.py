@@ -29,9 +29,8 @@ import numpy as np
 import torch
 
 from ..core.format import index_frames
-from ..native import centropy
 from ..ops import transform, transform_coefmajor, transform_fused
-from ..ops.parse import CM_FOLD, parse_block_major, parse_coef_major
+from ..ops.parse import parse_block_major
 from .mesh import (
     BLOCK_AXIS, DATA_AXIS, Mesh, ShardedArray, _on, as_tensor, make_mesh,
 )
@@ -267,16 +266,19 @@ def decode_stream_sharded(
     (frames over "data", blocks over "block").  Partitioning is GOP-aligned
     by default whenever the stream has at least one GOP per data shard:
     each shard's frame range starts at an I-frame (multihost.partition_gops,
-    balanced by frame count, padded with zero-delta frames to the widest
-    shard), so the temporal scan is shard-local and the fused kernels (K2
-    on coefficient-major windows without a block axis, else K1) run with no
-    exchange.  gop_aligned=False forces equal frame splits with the
-    cross-device carry exchange and K5 instead.
+    balanced by frame count), so the temporal scan is shard-local and the
+    fused window kernel K1 runs on each shard with no exchange.
+    gop_aligned=False forces equal frame splits with the cross-device carry
+    exchange and K5 instead.
 
-    In the JAX package the GOP-aligned data-axis case delegates to the mesh
-    streaming pipeline (DecodePipeline(mesh=)), which the port does not have
-    yet: here that case runs the whole-stream GOP-aligned code below, which
-    gives the same frames with the whole stream parsed at once.
+    The GOP-aligned data-axis case is the mesh streaming pipeline,
+    DecodePipeline(DecodeConfig(), mesh=mesh).decode_array(data): windows
+    parse per partition on demand with a bounded look-ahead, so the host
+    holds a few windows, never the whole stream.  What stays whole-stream
+    here needs the whole frame axis at once: block-axis sharding,
+    unaligned splits (the carry exchange runs over the full scan), and the
+    plain transform on the card (use_pallas=False on a CUDA mesh), which
+    the pipeline does not run.
     """
     mesh, use_pallas = _resolve(mesh, use_pallas)
     n_data = mesh.shape[DATA_AXIS]
@@ -285,6 +287,12 @@ def decode_stream_sharded(
     gop_starts = index.gop_starts()
     if gop_aligned is None:
         gop_aligned = len(gop_starts) >= n_data > 1
+    if (gop_aligned and mesh.shape[BLOCK_AXIS] == 1
+            and (use_pallas or not mesh.on_cuda())):
+        from ..runtime.pipeline import DecodePipeline
+        from ..utils.config import DecodeConfig
+
+        return DecodePipeline(DecodeConfig(), mesh=mesh).decode_array(data)
     blocks_h = index.header.blocks_h
     blocks_w = index.header.blocks_w
     nb = index.header.blocks_per_plane
@@ -310,56 +318,33 @@ def decode_stream_sharded(
         )
         return frames.numpy()[:nf]
 
-    # GOP-aligned: shard d decodes frames [part.frame_lo, part.frame_hi),
-    # padded to the widest shard with zero-delta frames (seg False: they
-    # repeat the last real frame and are dropped on output).
+    # GOP-aligned, whole stream: shard d decodes frames [part.frame_lo,
+    # part.frame_hi), padded to the widest shard with zero-delta frames
+    # (seg False: they repeat the last real frame and are dropped on
+    # output).
     parts = partition_gops(gop_starts, nf, n_data)
     fmax = max(p.num_frames for p in parts)
-    use_cm = (
-        use_pallas
-        and mesh.shape[BLOCK_AXIS] == 1
-        and centropy.native_available()
-    )
     seg = np.zeros(n_data * fmax, dtype=bool)
+    amps = np.zeros((3, n_data * fmax, nb, 64), dtype=np.int16)
     for p in parts:
         seg[p.host * fmax:p.host * fmax + p.num_frames] = (
             index.is_iframe[p.frame_lo:p.frame_hi]
         )
-    if use_cm:
-        # Coefficient-major path: the native parser emits K2's own layout.
-        k = CM_FOLD
-        g, bwe = blocks_h // k, k * blocks_w
-        amps_cm = np.zeros((3, n_data * fmax, g, 64, bwe), np.int16)
-        for p in parts:
-            if p.num_frames <= 0:
-                continue
-            amps_cm[:, p.host * fmax:p.host * fmax + p.num_frames] = (
-                parse_coef_major(
-                    data, index, np.arange(p.frame_lo, p.frame_hi), k
-                )
-            )
-        padded = decode_transform_sharded_cm(
-            amps_cm, seg, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
+        amps[:, p.host * fmax:p.host * fmax + p.num_frames] = parse_range(
+            p.frame_lo, p.frame_hi)
+    if use_pallas:
+        # Stacked path: the amps buffer is already (3, F, B, 64).
+        padded = decode_transform_sharded3(
+            amps, seg, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
             raster=False,
         )
     else:
-        amps = np.zeros((3, n_data * fmax, nb, 64), dtype=np.int16)
-        for p in parts:
-            local = parse_range(p.frame_lo, p.frame_hi)
-            amps[:, p.host * fmax:p.host * fmax + p.num_frames] = local
-        if use_pallas:
-            # Stacked path: the amps buffer is already (3, F, B, 64).
-            padded = decode_transform_sharded3(
-                amps, seg, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
-                raster=False,
-            )
-        else:
-            # The plain path builds raster frames only.
-            args = shard_inputs(mesh, amps[0], amps[1], amps[2], seg)
-            padded = decode_transform_sharded(
-                *args, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
-                gop_aligned=True, use_pallas=False,
-            )
+        # The plain path builds raster frames only.
+        args = shard_inputs(mesh, amps[0], amps[1], amps[2], seg)
+        padded = decode_transform_sharded(
+            *args, mesh=mesh, blocks_h=blocks_h, blocks_w=blocks_w,
+            gop_aligned=True, use_pallas=False,
+        )
     out = np.empty((nf, blocks_h * 8, blocks_w * 8), dtype=np.uint32)
     host = padded.numpy()
     if host.ndim == 5:

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import resolve_device
+
 DATA_AXIS = "data"
 BLOCK_AXIS = "block"
 
@@ -82,6 +84,21 @@ def make_mesh(
     return Mesh([
         devices[d * n_block:(d + 1) * n_block] for d in range(n_data)
     ])
+
+
+def data_devices(mesh: Mesh, use_pallas: bool | None = None
+                 ) -> list[torch.device]:
+    """The device of each data shard (block index 0), each resolved as an
+    entry point resolves its device (ops.resolve_device): all of one type,
+    cpu or cuda, and use_pallas, when given, agreeing with it."""
+    kinds = {dev.type for dev in mesh.flat()}
+    if len(kinds) > 1:
+        raise ValueError(
+            f"mesh mixes device types {sorted(kinds)}: a mesh runs the "
+            "kernels on CUDA devices or their plain versions on the CPU, "
+            "not both"
+        )
+    return [resolve_device(row[0], use_pallas) for row in mesh.devices]
 
 
 def as_tensor(x) -> torch.Tensor:

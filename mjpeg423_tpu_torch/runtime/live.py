@@ -416,6 +416,11 @@ def decode_live(
     pipe = pipeline or DecodePipeline(
         config=config, profiler=profiler, device=device
     )
+    if pipe.mesh is not None:
+        raise ValueError(
+            "decode_live is single-device (a live source has no random "
+            "access to partition GOPs); run one pipeline per feed"
+        )
     if scale != 1:
         # Validate before reader/deliverer threads spin up — otherwise the
         # bad argument surfaces one fully-decoded window later, inside the

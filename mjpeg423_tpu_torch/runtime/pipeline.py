@@ -1,5 +1,5 @@
-"""Streaming decode pipeline on one torch device: parse stage, device
-transform, output.
+"""Streaming decode pipeline on one torch device or a mesh of them: parse
+stage, device transform, output.
 
 One class, DecodePipeline, the counterpart of
 mjpeg423_tpu/runtime/pipeline.py's.  Its host half is copied from that file
@@ -32,8 +32,15 @@ produced (ops/transform_fused -> csrc/decode_window.cu): block-major K1
 when the native cm parse is unavailable, when a window's AC amplitudes
 exceed int8, and in every seam window of decode_streams.  On the CPU, which
 must be asked for by name, the same layouts go through the plain PyTorch
-versions.  Mesh-sharded streaming (mesh=) is not ported yet and raises;
-parallel.decode_stream_sharded decodes a whole stream over a mesh.
+versions.
+
+With mesh= the pipeline shards a stream's GOPs over the mesh's "data" axis
+(_decode_mesh): each data shard owns one contiguous GOP-aligned partition
+and walks it window by window with its own carry on its own device.  One
+process drives every shard: the parse look-ahead (_parse_ahead) parses one
+super-window (a window of every partition) per job, and the mesh device
+loop (_dispatch_mesh) runs each shard's window with that shard's device
+current, so its put, kernel and carry stay on its card.
 """
 from __future__ import annotations
 
@@ -52,6 +59,8 @@ from ..ops import resolve_device, scale as _scale, transform_fused
 from ..ops.parse import (  # CM_FOLD is re-exported: the step folds by it
     CM_FOLD, parse_block_major, parse_coef_major, plane_spans,
 )
+from ..parallel.mesh import BLOCK_AXIS, DATA_AXIS, _on, data_devices
+from ..parallel.multihost import partition_gops
 from ..utils.config import DecodeConfig
 from ..utils.profile import Profiler, default_profiler
 
@@ -134,7 +143,11 @@ def _layout(amps) -> str:
 
 class DecodePipeline:
     """End-to-end streaming decoder for MJPEG423 containers on one torch
-    device (default ``"cuda"``; pass ``device="cpu"`` for the plain path)."""
+    device (default ``"cuda"``; pass ``device="cpu"`` for the plain path),
+    or, with mesh= (parallel.make_mesh), with a stream's GOPs sharded over
+    the mesh's "data" axis.  The mesh's devices then take the place of
+    `device`: a mesh of CUDA devices runs the kernels, a mesh of CPU
+    devices their plain versions, and a mesh that mixes the two raises."""
 
     def __init__(
         self,
@@ -144,16 +157,18 @@ class DecodePipeline:
         device="cuda",
     ):
         self.config = config or DecodeConfig()
-        if mesh is not None:
-            raise NotImplementedError("mesh-sharded decode is not ported yet")
         self.profiler = profiler or default_profiler
-        self.mesh = None
-        self.device = resolve_device(device, self.config.use_pallas)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device, self.config.use_pallas)
+        else:
+            self._mesh_devices = data_devices(mesh, self.config.use_pallas)
+            self.device = self._mesh_devices[0]
 
-    def _put(self, x):
-        """Host array -> this pipeline's device."""
+    def _put(self, x, device: torch.device | None = None):
+        """Host array -> `device` (default: this pipeline's)."""
         return torch.from_numpy(np.ascontiguousarray(x)).to(
-            self.device, non_blocking=True
+            device or self.device, non_blocking=True
         )
 
     # ----- Stage A: host entropy parse ---------------------------------
@@ -264,12 +279,14 @@ class DecodePipeline:
             return transform_fused.carry_to_cm(carry, blocks_h, blocks_w, kk)
         return transform_fused.carry_from_cm(carry, blocks_h, blocks_w, kk)
 
-    def _zero_carry(self, layout: str, blocks_h: int, blocks_w: int):
+    def _zero_carry(self, layout: str, blocks_h: int, blocks_w: int,
+                    device: torch.device | None = None):
         if layout == "cm":
             shape = (3, blocks_h // CM_FOLD, 64, CM_FOLD * blocks_w)
         else:
             shape = (3, blocks_h * blocks_w, 64)
-        return torch.zeros(shape, dtype=torch.int16, device=self.device)
+        return torch.zeros(shape, dtype=torch.int16,
+                           device=device or self.device)
 
     def _to_raster(self, host: np.ndarray, blocks_h: int,
                    blocks_w: int) -> np.ndarray:
@@ -290,17 +307,19 @@ class DecodePipeline:
 
         return downscale
 
-    def _put_window(self, amps, c: int, w: int, nb: int):
+    def _put_window(self, amps, c: int, w: int, nb: int,
+                    device: torch.device | None = None):
         """Pad a parsed window to the window length (zero deltas repeat
-        the last frame; padded rows are dropped at drain) and put it on the
-        device, preserving the parse layout tag ("cm"/"i8"/block-major)."""
+        the last frame; padded rows are dropped at drain) and put it on
+        `device` (default: this pipeline's), preserving the parse layout
+        tag ("cm"/"i8"/block-major)."""
         if isinstance(amps, tuple) and amps[0] == "cm":
             cm = amps[1]
             if c < w:
                 pcm = np.zeros((3, w) + cm.shape[2:], dtype=np.int16)
                 pcm[:, :c] = cm
                 cm = pcm
-            return ("cm", self._put(cm))
+            return ("cm", self._put(cm, device))
         if isinstance(amps, tuple):  # packed ("i8", dc, ac8)
             _, dc, ac = amps
             if c < w:
@@ -309,12 +328,12 @@ class DecodePipeline:
                 pdc[:, :c] = dc
                 pac[:, :c] = ac
                 dc, ac = pdc, pac
-            return ("i8", self._put(dc), self._put(ac))
+            return ("i8", self._put(dc, device), self._put(ac, device))
         if c < w:
             pad = np.zeros((3, w, nb, 64), dtype=np.int16)
             pad[:, :c] = amps
             amps = pad
-        return self._put(amps)
+        return self._put(amps, device)
 
     # ----- Full pipeline ------------------------------------------------
 
@@ -322,26 +341,40 @@ class DecodePipeline:
         """Build the kernels (first use) and run one zero window through
         the step in the configured layout and then block-major, the runtime
         fallback of both other layouts, so that no first window pays a
-        build or launch set-up."""
+        build or launch set-up.  With a mesh: one window in the mesh's one
+        layout on each distinct device of the mesh."""
         bh, bw = height // 8, width // 8
         nb = bh * bw
         w = self.config.frames_per_batch
         seg = np.zeros(w, dtype=bool)
         seg[0] = True
         step = self._get_step(bh, bw)
-        windows = []
-        if self.config.pack_i8:
-            windows.append((("i8", self._put(np.zeros((3, w, nb), np.int16)),
-                             self._put(np.zeros((3, w, nb, 64), np.int8))),
-                            "bm"))
-        elif self._want_cm():
-            windows.append((("cm", self._put(np.zeros(
-                (3, w, bh // CM_FOLD, 64, CM_FOLD * bw), np.int16))), "cm"))
-        windows.append((self._put(np.zeros((3, w, nb, 64), np.int16)), "bm"))
-        for amps, layout in windows:
-            step(amps, self._put(seg), self._zero_carry(layout, bh, bw))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        bm = np.zeros((3, w, nb, 64), np.int16)
+        cm = ("cm", np.zeros((3, w, bh // CM_FOLD, 64, CM_FOLD * bw),
+                             np.int16))
+        if self.mesh is not None:
+            # The mesh path feeds one layout and never packs int8.
+            windows = [(cm, "cm") if self._mesh_fmt() == "cm" else (bm, "bm")]
+            devices = list(dict.fromkeys(self._mesh_devices))
+        else:
+            windows = []
+            if self.config.pack_i8:
+                windows.append((("i8", np.zeros((3, w, nb), np.int16),
+                                 np.zeros((3, w, nb, 64), np.int8)), "bm"))
+            elif self._want_cm():
+                windows.append((cm, "cm"))
+            windows.append((bm, "bm"))
+            devices = [self.device]
+
+        def run(dev, amps, layout):
+            step(self._put_window(amps, w, w, nb, dev), self._put(seg, dev),
+                 self._zero_carry(layout, bh, bw, dev))
+
+        for dev in devices:
+            for amps, layout in windows:
+                _on(dev, run, dev, amps, layout)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _window_loop(self, jobs, parse, blocks_h: int, blocks_w: int, *,
                      carry_layout: str, scale: int, max_inflight: int,
@@ -464,7 +497,25 @@ class DecodePipeline:
         raster_on_device or scale, rows beyond .count are pad).  _index: a
         prebuilt FrameIndex overriding the container chain walk
         (decode_resilient passes the trailer-resynced index).
+
+        With a mesh (_decode_mesh), windows are yielded in per-step order
+        across the shards' partitions, not in global frame order; consumers
+        key on DecodedWindow.start_frame (decode_array reassembles by it).
+        device_resident and scale are single-device and raise there.
         """
+        if self.mesh is not None:
+            if device_resident:
+                raise ValueError(
+                    "device_resident decode is single-device (mesh windows "
+                    "are sharded; consume them inside shard_map instead)"
+                )
+            if scale != 1:
+                raise ValueError(
+                    "scale is single-device; shard downscaled previews via "
+                    "StreamPool instead"
+                )
+            yield from self._decode_mesh(data, start_frame, stop, end_frame)
+            return
         cfg = self.config
         latency_first = cfg.latency_mode if latency is None else latency
         index = _index if _index is not None else fmt.index_frames(data)
@@ -498,6 +549,131 @@ class DecodePipeline:
                     return
         finally:
             wins.close()
+
+    # ----- Mesh-sharded streaming ----------------------------------------
+
+    def _mesh_fmt(self) -> str:
+        """The mesh path's device input layout: coefficient-major exactly
+        when _want_cm(ignore_i8=True) holds, else block-major.  The mesh
+        path never packs int8."""
+        return "cm" if self._want_cm(ignore_i8=True) else "bm"
+
+    def _decode_mesh(
+        self,
+        data: bytes,
+        start_frame: int = 0,
+        stop: Callable[[], bool] | None = None,
+        end_frame: int | None = None,
+    ) -> Iterator[DecodedWindow]:
+        """Sharded streaming decode over the mesh's "data" axis.
+
+        Each data shard owns a contiguous GOP-aligned frame partition
+        (multihost.partition_gops, balanced by frame count) and walks it
+        window by window with its own carry on its own device.  Step t's
+        super-window (window t of every partition) is one job of the parse
+        look-ahead.  A shard with no frames in step t launches nothing; its
+        partition is contiguous, so it has none in any later step either.
+        stop is checked after each step's windows.
+        """
+        mesh = self.mesh
+        if DATA_AXIS not in mesh.axis_names:
+            raise ValueError(f'mesh must have a "{DATA_AXIS}" axis')
+        if BLOCK_AXIS in mesh.axis_names and mesh.shape[BLOCK_AXIS] > 1:
+            raise ValueError(
+                "streaming decode shards GOPs over the data axis only; "
+                "use parallel.decode_stream_sharded for block-axis sharding"
+            )
+        cfg = self.config
+        index = fmt.index_frames(data)
+        hdr = index.header
+        bh, bw = hdr.blocks_h, hdr.blocks_w
+        w = cfg.frames_per_batch
+        if start_frame and not index.is_iframe[start_frame]:
+            raise ValueError(f"start_frame {start_frame} is not an I-frame")
+        nf = hdr.num_frames if end_frame is None else min(hdr.num_frames, end_frame)
+        gop_starts = [g for g in index.gop_starts() if start_frame <= g < nf]
+        if not gop_starts or gop_starts[0] != start_frame:
+            gop_starts = [start_frame] + gop_starts
+        parts = partition_gops(gop_starts, nf, len(self._mesh_devices))
+        n_steps = max(-(-p.num_frames // w) for p in parts)
+        layout = self._mesh_fmt()
+
+        def parse_super(job):
+            """Window t of every partition: per shard (start, count, I-frame
+            mask, parse result in the mesh layout), or None."""
+            t = job[0]
+            shards = []
+            for p in parts:
+                lo = p.frame_lo + t * w
+                cnt = min(w, p.frame_hi - lo)
+                if cnt <= 0:
+                    shards.append(None)
+                    continue
+                amps = self.parse_window(data, index, lo, cnt, False,
+                                         layout == "cm")
+                if layout == "cm" and _layout(amps) != "cm":
+                    # No native cm parse: relay the window on the host.
+                    amps = ("cm", transform_fused.to_cm(amps, bh, bw, CM_FOLD))
+                shards.append((lo, cnt, index.is_iframe[lo:lo + cnt], amps))
+            return shards
+
+        parsed = self._parse_ahead(
+            [(t, 0, None) for t in range(n_steps)], parse_super,
+            max(cfg.prefetch_batches, 1) + 2, cfg.parse_workers or None,
+            latency_first=False,
+        )
+        steps = self._dispatch_mesh(parsed, bh, bw, layout)
+        try:
+            for wins in steps:
+                for item in wins:
+                    yield self._drain(item, bh, bw)
+                if stop is not None and stop():
+                    return
+        finally:
+            steps.close()
+            parsed.close()
+
+    def _dispatch_mesh(self, parsed, blocks_h: int, blocks_w: int,
+                       layout: str):
+        """The device loop of the mesh mode, _dispatch's counterpart.
+
+        parsed: an iterator of (step, _, _, shards), shards as
+        _decode_mesh's parse_super makes them.  Each shard with frames in
+        the step is padded and put on its device and runs the step on its
+        own carry there, with that device current (parallel.mesh._on), so
+        that its copies, kernel and allocations belong to its card.  Yields
+        the step's [(start, count, frames)] as the output ring of
+        num_output_buffers steps releases them.
+        """
+        w = self.config.frames_per_batch
+        nb = blocks_h * blocks_w
+        step = self._get_step(blocks_h, blocks_w)
+        ring = max(1, self.config.num_output_buffers)
+        devices = self._mesh_devices
+        carries = [self._zero_carry(layout, blocks_h, blocks_w, dev)
+                   for dev in devices]
+
+        def run(d: int, item):
+            lo, cnt, seg_c, amps = item
+            seg = np.zeros(w, dtype=bool)
+            seg[:cnt] = seg_c
+            with self.profiler.time("device/put"):
+                dev_amps = self._put_window(amps, cnt, w, nb, devices[d])
+                dev_seg = self._put(seg, devices[d])
+            with self.profiler.time("device/dispatch"):
+                frames, carries[d] = step(dev_amps, dev_seg, carries[d])
+            return lo, cnt, frames
+
+        pending: collections.deque = collections.deque()
+        for _t, _c, _seg, shards in parsed:
+            pending.append([
+                _on(devices[d], run, d, item)
+                for d, item in enumerate(shards) if item is not None
+            ])
+            while len(pending) > ring:
+                yield pending.popleft()
+        while pending:
+            yield pending.popleft()
 
     def decode_iframes(
         self, data: bytes, stop: Callable[[], bool] | None = None,
@@ -536,7 +712,13 @@ class DecodePipeline:
         zero state), iframes_only decodes just the GOP heads, seam windows
         parse block-major and windows inside one stream in the configured
         layout, and stop ends the stream before the next dispatch.
+        Single-device: a mesh pipeline raises.
         """
+        if self.mesh is not None:
+            raise ValueError(
+                "decode_streams is single-device; use StreamPool to spread "
+                "clips over chips, or one mesh pipeline per long stream"
+            )
         cfg = self.config
         indices = [fmt.index_frames(d) for d in datas]
         if not indices:
@@ -709,8 +891,14 @@ class DecodePipeline:
         Frames inside skipped ranges are never yielded — consumers key on
         DecodedWindow.start_frame as always.  Undetectable corruption
         (bit flips that still parse) is out of scope, as it is for the
-        reference: the format carries no checksums.
+        reference: the format carries no checksums.  Single-device: a mesh
+        pipeline raises.
         """
+        if self.mesh is not None:
+            raise ValueError(
+                "decode_resilient is single-device (mesh partitions assume "
+                "an intact chain; StreamPool retries cover fleet failures)"
+            )
         rec = recovery if recovery is not None else RecoveryLog()
         index, bad = fmt.index_frames_resilient(data)
         rec.skipped.extend(bad)

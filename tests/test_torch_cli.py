@@ -4,9 +4,9 @@ player cases): ``mjpeg423_tpu_torch.cli`` against ``mjpeg423_tpu.cli``.
 Each case runs the same command on the same seeded container through both
 CLIs (the JAX one with --no-pallas, the port's with --device cpu) and
 requires the same exit code, the same printed metadata and byte-equal
-output files (BMP, PPM, NPY, containers, raw pipe words).  Where the JAX
-case decodes over a mesh (decode --all-devices) the port exits 2.  The
-``cuda`` cases run the port's CLI on the card and skip without one:
+output files (BMP, PPM, NPY, containers, raw pipe words); decode
+--all-devices decodes over each package's mesh.  The ``cuda`` cases run
+the port's CLI on the card and skip without one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cli.py
 """
@@ -317,16 +317,21 @@ def test_cli_encode_from_ppm(tmp_path):
 
 
 def test_cli_decode_all_devices(tmp_path, stream, mpg, capsys):
-    """The JAX CLI GOP-shards over its virtual mesh; the port has no mesh
-    streaming decode yet and exits 2 with one line saying so."""
+    """decode --all-devices GOP-shards through the mesh streaming pipeline:
+    the JAX CLI over its virtual mesh, the port's with --device cpu over a
+    one-cell CPU mesh; the same frames.  Live stdin refuses a mesh in both,
+    with the same words, before reading anything."""
     runs = _both(tmp_path, lambda o: ["decode", mpg, "-o", o, "--npy",
                                       "--all-devices", "--batch", "3"], capsys)
-    assert runs[0][0] == 0 and runs[1][0] == 2
+    assert runs[0][0] == runs[1][0] == 0
+    _same_files(runs[0][1], runs[1][1])
     np.testing.assert_array_equal(
-        np.load(os.path.join(runs[0][1], "frameframes.npy")),
+        np.load(os.path.join(runs[1][1], "frameframes.npy")),
         decoder.decode_stream_array(stream[0]))
-    assert "not ported" in runs[1][3] and len(runs[1][3].strip().splitlines()) == 1
-    assert not os.path.exists(runs[1][1])
+    live = _both(tmp_path, lambda o: ["decode", "-", "-o", o, "--npy",
+                                      "--all-devices"], capsys)
+    assert live[0][0] == live[1][0] == 2
+    assert live[1][3] == live[0][3] and "single-device" in live[1][3]
 
 
 def test_cli_info_verify(tmp_path, stream, mpg, capsys):
@@ -392,6 +397,7 @@ def test_cli_on_the_card(cuda, tmp_path, stream, mpg, capsys):
     """decode, thumbs, encode, play, serve and selftest on the card, each
     output byte-equal to the same command with --device cpu."""
     for argv in (["decode", mpg, "--npy"], ["decode", mpg],
+                 ["decode", mpg, "--npy", "--all-devices", "--batch", "3"],
                  ["thumbs", mpg, "--scale", "2"], ["play", mpg, "--no-pace"]):
         dirs = []
         for dev in ("cuda", "cpu"):

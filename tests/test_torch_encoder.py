@@ -24,6 +24,7 @@ from mjpeg423_tpu.utils.config import DecodeConfig, EncodeConfig
 from mjpeg423_tpu_torch.codec import encode_frames_device
 from mjpeg423_tpu_torch.codec import encoder as penc
 from mjpeg423_tpu_torch.ops import encode_fused as ef
+from mjpeg423_tpu_torch.parallel import Mesh
 from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
 
 H, WD, NF = 40, 56, 9
@@ -221,7 +222,7 @@ def test_leaked_producer_warns(clip, monkeypatch):
 @pytest.mark.parametrize(
     "kw,exc",
     [
-        (dict(mesh=object(), device="cpu"), NotImplementedError),
+        (dict(mesh=Mesh([["cpu"], ["cuda:0"]]), device="cpu"), ValueError),
         (dict(use_pallas=True, device="cpu"), ValueError),
         (dict(device="meta"), ValueError),
     ],

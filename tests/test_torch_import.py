@@ -46,6 +46,12 @@ SCRIPTS = {
         import mjpeg423_tpu_torch.runtime
         import mjpeg423_tpu_torch.parallel
         import mjpeg423_tpu_torch.parallel.multihost
+        import mjpeg423_tpu_torch.parallel.encode
+        import mjpeg423_tpu_torch.examples.roundtrip
+        import mjpeg423_tpu_torch.examples.clip_farm
+        import mjpeg423_tpu_torch.examples.live_pipeline
+        import mjpeg423_tpu_torch.examples.sharded_decode
+        import mjpeg423_tpu_torch.examples.device_consumer
         import mjpeg423_tpu_torch.cli
         import mjpeg423_tpu_torch.codec.decoder
         import mjpeg423_tpu_torch.codec.transcode
@@ -146,6 +152,46 @@ SCRIPTS = {
                                             use_pallas=True)
                 assert np.array_equal(got, want), (shape, aligned)
         assert tc.LAUNCHES_K5 == 0  # CPU tensors take the plain version
+    """,
+    "mesh_encode_multihost": """
+        from mjpeg423_tpu_torch.codec import (
+            EncodeConfig, encode_frames, encode_frames_device)
+        from mjpeg423_tpu_torch.codec.decoder import decode_stream_array
+        from mjpeg423_tpu_torch.parallel import (
+            decode_stream_sharded, encode_transform_sharded, make_mesh,
+            multihost)
+        from mjpeg423_tpu_torch.parallel.encode import (
+            encode_window_fused_sharded, shard_samples)
+        from mjpeg423_tpu_torch.runtime import DecodeConfig, DecodePipeline
+        rng = np.random.default_rng(10)
+        base = rng.integers(0, 256, (16, 24, 3))
+        frames = []
+        for t in range(9):
+            f = base.copy()
+            f[t % 8:t % 8 + 8, 2 * t:2 * t + 8] = 255
+            frames.append(f.astype(np.uint8))
+        data = encode_frames(frames, max_i_interval=2)
+        want = decode_stream_array(data)
+        mesh = make_mesh(4, 1, devices=["cpu"] * 4)
+        for cfg in ({}, dict(coef_major=True)):
+            pipe = DecodePipeline(DecodeConfig(frames_per_batch=2, **cfg),
+                                  mesh=mesh)
+            pipe.warmup(24, 16)
+            assert np.array_equal(pipe.decode_array(data), want), cfg
+        assert np.array_equal(decode_stream_sharded(data, mesh), want)
+        got = encode_frames_device(frames, max_i_interval=2, mesh=mesh,
+                                   config=EncodeConfig(frames_per_batch=4))
+        assert got == data
+        y = rng.integers(0, 256, (8, 6, 8, 8)).astype(np.uint8)
+        ci, cp = encode_transform_sharded(*shard_samples(mesh, y, y, y),
+                                          mesh=mesh)
+        assert ci["y"].numpy().shape == cp["cr"].numpy().shape == (8, 6, 64)
+        s3 = encode_window_fused_sharded(
+            rng.integers(0, 256, (3, 4, 6, 64)).astype(np.uint8), mesh=mesh,
+            blocks_h=2, blocks_w=3)
+        assert s3.numpy().dtype == np.int16
+        assert multihost.initialize() == (0, 1)
+        assert multihost.aggregate_counts(3) == 3.0
     """,
     "live_pool_cli": """
         import io, json, os, tempfile, contextlib

@@ -349,14 +349,25 @@ def test_live_stop_predicate(stream, layout):
 
 
 def test_live_rejects_mesh_pipeline():
-    """The JAX test hands decode_live a mesh pipeline and expects it to
-    refuse; the port has no mesh pipeline yet, so building one raises."""
+    """decode_live refuses a mesh pipeline with the JAX package's words."""
+    from mjpeg423_tpu.parallel import make_mesh as jax_make_mesh
     from mjpeg423_tpu_torch.parallel import make_mesh
 
-    mesh = make_mesh(2, 1, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DecodePipeline(DecodeConfig(frames_per_batch=4), mesh=mesh,
-                       device="cpu")
+    data = jax_encoder.encode_frames(
+        make_test_frames(np.random.default_rng(80), num_frames=6), 3)
+    errors = []
+    for live, pipe in (
+        (jax_live, jax_pipeline.DecodePipeline(
+            jax_pipeline.DecodeConfig(frames_per_batch=4),
+            mesh=jax_make_mesh(2, 1))),
+        (None, DecodePipeline(DecodeConfig(frames_per_batch=4),
+                              mesh=make_mesh(2, 1, devices=["cpu"] * 2))),
+    ):
+        fn = live.decode_live if live else decode_live
+        with pytest.raises(ValueError, match="single-device") as err:
+            next(fn(io.BytesIO(data), pipeline=pipe))
+        errors.append(str(err.value))
+    assert errors[1] == errors[0]
 
 
 def test_live_encoder_finalize_byte_identical():

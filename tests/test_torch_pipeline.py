@@ -238,8 +238,13 @@ def test_decode_resilient_matches_jax(jax_runtime, stream):
 
 
 def test_unported_configurations_refuse():
-    with pytest.raises(NotImplementedError):
-        DecodePipeline(mesh=object(), device="cpu")
+    """Every configuration is ported; what a mesh pipeline still refuses is
+    a mesh of mixed device types (one runs the kernels or the plain
+    versions, not both)."""
+    from mjpeg423_tpu_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="mixes device types"):
+        DecodePipeline(mesh=Mesh([["cpu"], ["cuda:0"]]), device="cpu")
 
 
 LAYOUTS = {

@@ -4,9 +4,9 @@ mesh cases): the port's runtime/playback.py against the JAX package's.
 Each case plays the same seeded container through both players (the
 port's on device="cpu") and requires the same delivered frame indices,
 byte-equal frames and equal PlaybackStats counts; cases that name a config
-run in the port's three input layouts.  The mesh cases assert that the
-port refuses a mesh until it has the mesh-sharded streaming decode.  The
-``cuda`` case plays on the card and skips without one:
+run in the port's three input layouts.  The mesh cases decode through the
+port's mesh pipeline on a CPU mesh.  The ``cuda`` case plays on the card
+and skips without one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_playback.py
 """
@@ -145,15 +145,29 @@ def test_player_state_snapshot(stream):
 
 
 @pytest.mark.parametrize("case", ["warmup", "end-frame-bound"])
-def test_pipeline_mesh_cases_raise(case):
+def test_pipeline_mesh_cases_raise(case, stream):
     """tests/test_runtime.py's test_pipeline_warmup_mesh and
-    test_pipeline_end_frame_bound_mesh decode through DecodePipeline(mesh=);
-    the port raises there until it has the mesh-sharded streaming decode."""
-    shape = (4, 1) if case == "warmup" else (2, 1)
-    mesh = make_mesh(*shape, devices=["cpu"] * shape[0])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DecodePipeline(DecodeConfig(frames_per_batch=2), mesh=mesh,
-                       device="cpu")
+    test_pipeline_end_frame_bound_mesh: DecodePipeline(mesh=) on a CPU mesh,
+    warmed up, and bounded by start_frame/end_frame, against the oracle."""
+    from mjpeg423_tpu_torch.core.format import index_frames
+
+    if case == "warmup":
+        frames = make_test_frames(np.random.default_rng(12), num_frames=12,
+                                  h=16, w=16)
+        data = encoder.encode_frames(frames, max_i_interval=4)
+        want = decoder.decode_stream_array(data)
+        pipe = DecodePipeline(DecodeConfig(frames_per_batch=2),
+                              mesh=make_mesh(4, 1, devices=["cpu"] * 4))
+        pipe.warmup(16, 16)
+        np.testing.assert_array_equal(pipe.decode_array(data), want)
+        return
+    data, want = stream
+    starts = index_frames(data).gop_starts()
+    lo, hi = starts[0], starts[2]
+    pipe = DecodePipeline(DecodeConfig(frames_per_batch=3),
+                          mesh=make_mesh(2, 1, devices=["cpu"] * 2))
+    got = pipe.decode_array(data, start_frame=lo, end_frame=hi)
+    np.testing.assert_array_equal(got, want[lo:hi])
 
 
 def test_player_defaults_to_the_card(stream):

@@ -7,8 +7,8 @@ Every case sends the same seeded input through the original and the copy
 and requires equal bytes: containers, BMP and PPM files, decoded arrays,
 GOP chunks, dump text and the same errors.  Where the JAX case decodes over
 a mesh (test_regop_enables_sharding) the port's twin decodes the re-GOP'd
-stream with decode_stream_sharded and asserts that DecodePipeline(mesh=)
-raises.
+stream with decode_stream_sharded and with DecodePipeline(mesh=) on a CPU
+mesh.
 """
 import importlib
 import struct
@@ -92,8 +92,8 @@ def test_regop_enables_sharding():
     mesh = make_mesh(8, 1, devices=["cpu"] * 8)
     np.testing.assert_array_equal(decode_stream_sharded(new, mesh),
                                   da.decode_stream_array(orig))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DecodePipeline(mesh=mesh, device="cpu")
+    np.testing.assert_array_equal(DecodePipeline(mesh=mesh).decode_array(new),
+                                  da.decode_stream_array(orig))
 
 
 def test_regop_noise_content():
