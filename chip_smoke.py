@@ -118,6 +118,23 @@ each path's launches counted from 0 just before it (mesh_phases):
      its GOP partition (multihost.local_partition): merged frames byte-equal
      and aggregate_counts equal to the frame count.  The two processes
      start when phase 4b does and run beside it; 7d collects them.
+The encoder's candidate path, the top-level entry points and a traced decode
+have their own phases (entry_phases), each path's launches counted from 0
+just before it:
+  8a. encode_frames_device(use_pallas=False) on phase 4's source clips,
+     threaded and serial entropy coding and over a 4x1 mesh of cuda:0
+     repeated: containers byte-identical to the host encoder's, no kernel
+     launched (the transform is plain PyTorch on the card, as JAX's is
+     XLA); then [enc-rate] lines: its wall against the default fused
+     path's over 3 alternating pairs, with os.cpu_count() (the width of its
+     thread pool);
+  8b. entry()'s step on the card byte-equal to the same function on CPU
+     copies of its arguments (one K1 launch), and dryrun_multichip(4)'s
+     five passes, each byte-equal, with their launches (K5 4, K1 4, K1 4,
+     none, K4 4 on one card repeated);
+  8c. Profiler(trace_dir=) around DecodePipeline.decode_array of the
+     640x480 clip: trace.json holds one decode_window_kernel event a K1
+     launch, and the frames are phase 4's.
 "[clock]" lines give the seconds since the start after each group of phases.
 The encode path has its own phases beside these:
   3b. the fused encode-window kernel (FDCT + quantize) against its plain
@@ -376,9 +393,9 @@ def _reconnection(mpg: bytes, want: np.ndarray, cut_frame: int):
 # The decode layouts the shell phases drive: config and the counter of the
 # kernel every window of phase 4's clips goes through.
 SHELL_LAYOUTS = {
-    "default": ({}, "LAUNCHES"),
-    "coef_major": ({"coef_major": True}, "LAUNCHES_CM"),
-    "pack_i8": ({"pack_i8": True}, "LAUNCHES_I8"),
+    "default": ({}, "K1"),
+    "coef_major": ({"coef_major": True}, "K2"),
+    "pack_i8": ({"pack_i8": True}, "K3"),
 }
 SHELL_PAIRS = 5  # alternating pairs of each rate comparison (phase 6e)
 
@@ -401,7 +418,7 @@ def shell_phases(dev: torch.device, clips: dict, gops: dict, thumbs_hd,
     from mjpeg423_tpu_torch.codec.decoder import decode_stream_array
     from mjpeg423_tpu_torch.core import format as fmt
     from mjpeg423_tpu_torch.io import bmp
-    from mjpeg423_tpu_torch.ops import encode_fused as ef, transform_fused as tf
+    from mjpeg423_tpu_torch.ops import launch_counts, reset_counts
     from mjpeg423_tpu_torch.runtime import (
         DecodeConfig, DecodePipeline, Player, RecoveryLog, decode_live_array,
         live_stream_bytes, play_live,
@@ -410,21 +427,20 @@ def shell_phases(dev: torch.device, clips: dict, gops: dict, thumbs_hd,
 
     on_card = dev.type == "cuda"
     w = DecodeConfig().frames_per_batch
-    totals = {"LAUNCHES": 0, "LAUNCHES_CM": 0, "LAUNCHES_I8": 0,
-              "ENCODE_LAUNCHES": 0}
+    totals = dict.fromkeys(GROUP_COUNTS, 0)
 
     def check(tag: str, ok: bool, what: str) -> None:
         print(f"[{tag}] {what} {'PASS' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append(f"{tag}: {what[:120]}")
 
-    def counted(fn, windows: int, counter: str = "LAUNCHES"):
-        """fn() with the decode kernels' counts set to 0 just before and
-        read just after: (result, the counts, whether they are `windows`
+    def counted(fn, windows: int, counter: str = "K1"):
+        """fn() with every kernel's count set to 0 just before and read
+        just after: (result, the counts, whether they are `windows`
         launches of `counter` and no other on the card, none on the CPU)."""
-        tf.COUNTS.reset()
+        reset_counts()
         out = fn()
-        counts = tf.COUNTS.read()
+        counts = launch_counts()
         for k, v in counts.items():
             totals[k] += v
         want = windows if on_card else 0
@@ -598,11 +614,11 @@ def shell_phases(dev: torch.device, clips: dict, gops: dict, thumbs_hd,
         mpg_sd, want_sd, nf_sd, _ = clips["640x480"]
         npy = os.path.join(tmp, "dec-640x480", "frameframes.npy")
         enc = os.path.join(tmp, "re.mpg")
-        ef.COUNTS.reset()
+        reset_counts()
         rc = cli.main(["encode", npy, "-o", enc, "--max-i-interval",
                        str(gops["640x480"]), *dev_arg])
-        n_enc = ef.COUNTS.get("LAUNCHES")
-        totals["ENCODE_LAUNCHES"] += n_enc
+        n_enc = launch_counts()["K4"]
+        totals["K4"] += n_enc
         with open(enc, "rb") as fh:
             got_mpg = fh.read()
         host = encode_frames([bmp.packed_to_rgb(f) for f in want_sd],
@@ -797,6 +813,40 @@ def _check(failures: list, tag: str, ok: bool, what: str) -> None:
         failures.append(f"{tag}: {what[:120]}")
 
 
+# The launch counts a phase group reports, by kernel (ops.launch_counts):
+# the decode window's three layouts K1-K3, K4 (encode) and K5.
+GROUP_COUNTS = ("K1", "K2", "K3", "K4", "K5")
+
+
+def phase_clock():
+    """clock(phase): print the seconds since the clock's last reading."""
+    last = [time.perf_counter()]
+
+    def clock(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[clock] phase {phase}: {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+    return clock
+
+
+def counted_run(fn, totals: dict, on_card: bool):
+    """fn() with every kernel's launch count set to 0 just before and read
+    just after (the card synchronized first), the counts added to totals:
+    (result, seconds, the counts by GROUP_COUNTS name)."""
+    from mjpeg423_tpu_torch.ops import launch_counts, reset_counts
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    for k, v in counts.items():
+        totals[k] += v
+    return out, dt, counts
+
+
 def mesh_phases(dev: torch.device, clips: dict, gops: dict,
                 failures: list, workers: dict | None = None) -> dict:
     """Phases 7a-7d: the multi-device layer through its entry points, on
@@ -817,36 +867,18 @@ def mesh_phases(dev: torch.device, clips: dict, gops: dict,
         EncodeConfig, encode_frames_device, index_frames,
     )
     from mjpeg423_tpu_torch.codec.transcode import regop
-    from mjpeg423_tpu_torch.ops import (
-        encode_fused as ef, transform_coefmajor as tc, transform_fused as tf,
-    )
+    from mjpeg423_tpu_torch.ops import encode_fused as ef
     from mjpeg423_tpu_torch.parallel import decode_stream_sharded, make_mesh
     from mjpeg423_tpu_torch.parallel.multihost import partition_gops
     from mjpeg423_tpu_torch.runtime import DecodeConfig, DecodePipeline
 
     on_card = dev.type == "cuda"
-    totals = {"LAUNCHES": 0, "LAUNCHES_CM": 0, "LAUNCHES_I8": 0,
-              "LAUNCHES_K5": 0, "ENCODE_LAUNCHES": 0}
+    totals = dict.fromkeys(GROUP_COUNTS, 0)
     walls: dict = {}
-    t_phase = [time.perf_counter()]
-
-    def clock(phase: str) -> None:
-        now = time.perf_counter()
-        print(f"[clock] phase {phase}: {now - t_phase[0]:.1f} s", flush=True)
-        t_phase[0] = now
+    clock = phase_clock()
 
     def counted(fn):
-        """fn() with the decode kernels' counts set to 0 just before and
-        read just after: (result, seconds, the counts)."""
-        tf.COUNTS.reset()
-        tc.COUNTS.reset()
-        t0 = time.perf_counter()
-        out = fn()
-        dt = time.perf_counter() - t0
-        counts = {**tf.COUNTS.read(), "LAUNCHES_K5": tc.LAUNCHES_K5}
-        for k, v in counts.items():
-            totals[k] += v
-        return out, dt, counts
+        return counted_run(fn, totals, on_card)
 
     def windows(mpg: bytes, n: int, w: int) -> int:
         """The mesh pipeline's launches: a window of each partition a step,
@@ -877,8 +909,8 @@ def mesh_phases(dev: torch.device, clips: dict, gops: dict,
         for mname, devices in meshes.items():
             mesh = make_mesh(len(devices), 1, devices=devices)
             for layout, cfg, counter in (
-                    ("default", {}, "LAUNCHES"),
-                    ("coef_major", {"coef_major": True}, "LAUNCHES_CM")):
+                    ("default", {}, "K1"),
+                    ("coef_major", {"coef_major": True}, "K2")):
                 for fpb in (DecodeConfig().frames_per_batch, 5):
                     pipe = DecodePipeline(
                         DecodeConfig(frames_per_batch=fpb, **cfg), mesh=mesh)
@@ -906,7 +938,7 @@ def mesh_phases(dev: torch.device, clips: dict, gops: dict,
                 lambda: decode_stream_sharded(mpg, mesh, gop_aligned=True))
             n = windows(mpg, len(devices), w)
             same = got.shape == want.shape and np.array_equal(got, want)
-            moved = counts["LAUNCHES"] == sum(counts.values()) == n
+            moved = counts["K1"] == sum(counts.values()) == n
             walls[f"7b {gname} {mname}"] = dt
             _check(failures, "mesh-sharded", same and moved,
                    f"decode_stream_sharded {gname} mesh {mname} "
@@ -957,7 +989,7 @@ def mesh_phases(dev: torch.device, clips: dict, gops: dict,
                     config=EncodeConfig(overlap_device=overlap))
                 dt = time.perf_counter() - t0
                 launches = ef.COUNTS.get("LAUNCHES")
-                totals["ENCODE_LAUNCHES"] += launches
+                totals["K4"] += launches
                 win = max(enc_w, n) // n * n
                 expect = _windows(nf, win) * n if on_card else 0
                 walls[f"7c {gname} {mname} overlap={overlap}"] = dt
@@ -985,7 +1017,7 @@ def mesh_phases(dev: torch.device, clips: dict, gops: dict,
     n = windows(mpg, n_all, w)
     walls["7d cli decode --all-devices"] = dt
     _check(failures, "mesh-cli",
-           same and counts["LAUNCHES"] == sum(counts.values()) == n,
+           same and counts["K1"] == sum(counts.values()) == n,
            f"decode --npy --all-devices --device {dev.type} ({n_all}x1 "
            f"mesh): rc {rc}, frames.npy byte-equal to phase 4={same}, "
            f"{dt:.3f} s, launches {counts} (expected {n})")
@@ -1016,7 +1048,7 @@ def mesh_phases(dev: torch.device, clips: dict, gops: dict,
     n = sum(_windows(p.num_frames, w) for p in partition_gops(
         index.gop_starts(), nf, 2)) if on_card else 0
     same = ok and seen == nf and np.array_equal(merged, want)
-    totals["LAUNCHES"] += k1
+    totals["K1"] += k1
     # From the start of the processes to the later one's end: interpreter
     # and CUDA start-up included, beside whatever this process ran then.
     dt = t_end - run["t0"]
@@ -1031,6 +1063,165 @@ def mesh_phases(dev: torch.device, clips: dict, gops: dict,
            f"{'' if rcs == [0, 0] else ' ' + repr(errs)}")
     clock("7d")
     return {"launches": totals, "rates": rates,
+            "walls_s": {k: round(v, 4) for k, v in walls.items()}}
+
+
+ENC_PAIRS = 3  # alternating pairs of the candidate-vs-fused encode (phase 8a)
+
+
+def entry_phases(dev: torch.device, clips: dict, gops: dict,
+                 failures: list) -> dict:
+    """Phases 8a-8c: the encoder's candidate path, the top-level entry points
+    and a traced decode, on phase 4's clips (gname -> (container, plain CPU
+    frames, frame count, source frames)) on `dev`.  Every output is held
+    byte for byte against phase 4's containers or frames, and each path's
+    launches are counted from 0 just before it (none on the CPU, where
+    this is rehearsed).  Returns the launch counts by kernel, the encode
+    walls and the trace's numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    from mjpeg423_tpu_torch.codec import EncodeConfig, encode_frames_device
+    from mjpeg423_tpu_torch.entry import dryrun_multichip, entry
+    from mjpeg423_tpu_torch.parallel import make_mesh
+    from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler
+
+    on_card = dev.type == "cuda"
+    totals = dict.fromkeys(GROUP_COUNTS, 0)
+    clock = phase_clock()
+
+    def counted(fn):
+        return counted_run(fn, totals, on_card)
+
+    # ---- 8a. the candidate encoder on the card -----------------------------
+    rep4 = make_mesh(4, 1, devices=[dev] * 4)
+    variants = {"threaded": {}, "serial": {"parallel_entropy": False},
+                f"mesh 4x1 {dev} repeated": {"mesh": rep4}}
+    walls: dict = {}
+    for gname, (mpg, _want, nf, src) in clips.items():
+        for label, kw in variants.items():
+            prof = Profiler()
+            got, dt, counts = counted(lambda: encode_frames_device(
+                src, max_i_interval=gops[gname], use_pallas=False,
+                device=dev, profiler=prof, **kw))
+            walls[f"8a {gname} {label}"] = dt
+            _check(failures, "enc-candidates",
+                   got == mpg and sum(counts.values()) == 0,
+                   f"encode_frames_device(use_pallas=False) {gname} {label} "
+                   f"on {dev}: {len(got)} bytes in {dt:.3f} s, byte-identical "
+                   f"to the host encoder={got == mpg}, launches {counts} "
+                   f"(expected none: the plain transform)")
+            for line in prof.format_report().splitlines():
+                print(f"[enc-candidates] {gname} {label} probe {line}")
+    rates: dict = {}
+    for gname, (mpg, _want, nf, src) in clips.items():
+        fns = {
+            "candidates (threaded)": lambda: encode_frames_device(
+                src, max_i_interval=gops[gname], use_pallas=False, device=dev),
+            "fused (default)": lambda: encode_frames_device(
+                src, max_i_interval=gops[gname], device=dev),
+        }
+        # Every timed call is counted and checked: the fused side must
+        # launch K4 once a window, the candidate side never.
+        k4 = {"candidates (threaded)": 0, "fused (default)": _windows(
+            nf, EncodeConfig().frames_per_batch) if on_card else 0}
+        runs = {k: [] for k in fns}
+        for i in range(ENC_PAIRS):
+            for name in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+                got, dt, counts = counted(fns[name])
+                runs[name].append(dt)
+                if got != mpg or counts["K4"] != sum(counts.values()) \
+                        or counts["K4"] != k4[name]:
+                    _check(failures, "enc-rate", False,
+                           f"{name} {gname} pair {i}: byte-identical to the "
+                           f"host encoder={got == mpg}, launches {counts} "
+                           f"(expected K4 {k4[name]})")
+        _check(failures, "enc-rate", True,
+               f"{gname}: all {2 * ENC_PAIRS} timed calls byte-identical to "
+               f"the host encoder, K4 {k4['fused (default)']} a fused call "
+               f"and 0 a candidate call")
+        rates[f"encode_frames_device {gname} wall s"] = {
+            k: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                "n": len(v)} for k, v in runs.items()}
+        print(f"[enc-rate] encode_frames_device {gname} ({nf} frames) on {dev}, "
+              f"os.cpu_count() {os.cpu_count()}, wall s over {ENC_PAIRS} "
+              f"alternating pairs: " + ", ".join(
+                  f"{k} median {statistics.median(v):.4f} (min {min(v):.4f}, "
+                  f"max {max(v):.4f})" for k, v in runs.items()), flush=True)
+    clock("8a")
+
+    # ---- 8b. the top-level entry points ---------------------------------------
+    fn, args = entry(device=dev)
+    (frames, carry), dt, counts = counted(lambda: fn(*args))
+    want_f, want_c = fn(*(a.cpu() for a in args))
+    same = torch.equal(frames.cpu().view(torch.int32), want_f.view(torch.int32)) \
+        and torch.equal(carry.cpu(), want_c)
+    k1 = 1 if on_card else 0
+    _check(failures, "entry",
+           same and counts["K1"] == sum(counts.values()) == k1,
+           f"entry() on {dev}: fn(*args) frames {tuple(frames.shape)}, "
+           f"byte-equal to the same function on the CPU copies={same}, "
+           f"{dt:.3f} s, launches {counts} (expected {k1} K1)")
+    del frames, carry, want_f, want_c, args
+    # On the card with no devices: the first 4 cards, or cuda:0 repeated.
+    dry_devices = None if on_card else [dev] * 4
+    expect = ({"1": {}, "1 kernels": {"K5": 4}, "2": {"K1": 4},
+               "3": {"K1": 4}, "4": {}, "5": {"K4": 4}} if on_card else
+              {p: {} for p in ("1", "2", "3", "4", "5")})
+    try:
+        passes, dt, counts = counted(
+            lambda: dryrun_multichip(4, devices=dry_devices))
+        err = ""
+    except AssertionError as e:  # a pass that differs is this phase's FAIL
+        passes, dt, counts, err = {}, 0.0, {}, f" {e}"
+    _check(failures, "dryrun",
+           passes == expect and not err,
+           f"dryrun_multichip(4) on {dev}: every pass byte-equal={not err}, "
+           f"{dt:.3f} s, launches by pass {json.dumps(passes)} (expected "
+           f"{json.dumps(expect)}), in all {counts}{err}")
+    clock("8b")
+
+    # ---- 8c. a traced decode ------------------------------------------------
+    mpg, want, nf, _src = clips["640x480"]
+    h, w = GEOMS["640x480"]
+    tmp = tempfile.mkdtemp(prefix="mj423_trace_")
+    try:
+        prof = Profiler(trace_dir=tmp)
+        pipe = DecodePipeline(device=dev, profiler=prof)
+        pipe.warmup(w, h)
+
+        def traced():
+            prof.start_trace()
+            try:
+                return pipe.decode_array(mpg)
+            finally:
+                prof.stop_trace()
+
+        got, dt, counts = counted(traced)
+        path = os.path.join(tmp, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    k1_events = [e for e in events if e.get("cat") == "kernel"
+                 and "decode_window_kernel" in e.get("name", "")]
+    kernel_us = sum(float(e.get("dur", 0)) for e in k1_events)
+    n = _windows(nf, pipe.config.frames_per_batch) if on_card else 0
+    same = np.array_equal(got, want)
+    trace = {"trace_bytes": size, "events": len(events),
+             "decode_window_kernel_events": len(k1_events),
+             "decode_window_kernel_us": kernel_us, "wall_s": dt}
+    _check(failures, "trace",
+           same and len(k1_events) == counts["K1"] == n,
+           f"Profiler(trace_dir=...) around DecodePipeline.decode_array "
+           f"640x480 on {dev}: trace.json {size} bytes, {len(events)} events, "
+           f"{len(k1_events)} decode_window_kernel events ({kernel_us:.1f} us "
+           f"on the card) against K1 launches {counts['K1']} (expected "
+           f"{n}), frames byte-equal to phase 4={same}, {dt:.3f} s")
+    clock("8c")
+    return {"launches": totals, "rates": rates, "trace": trace,
             "walls_s": {k: round(v, 4) for k, v in walls.items()}}
 
 
@@ -1896,6 +2087,11 @@ def main() -> int:
 
     # ---- 7. the multi-device layer: mesh pipeline, sharded encode, gloo ----
     mesh = mesh_phases(dev, clips, gops, failures, workers)
+    clock("7")
+
+    # ---- 8. the candidate encoder, the entry points, a traced decode -------
+    group8 = entry_phases(dev, clips, gops, failures)
+    clock("8")
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib")
@@ -1959,6 +2155,7 @@ def main() -> int:
     print(f"[sharded-summary] wall seconds {json.dumps(sharded_wall_s)}")
     print(f"[shell-summary] {json.dumps(shell)}")
     print(f"[mesh-summary] {json.dumps(mesh)}")
+    print(f"[entry-summary] {json.dumps(group8)}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_window_fused",
@@ -1977,8 +2174,9 @@ def main() -> int:
         **decode_build["k1"],
         "e2e_frames_per_s": e2e,
         "sharded_launches": sharded_launches["LAUNCHES"],
-        "shell_launches": shell["launches"]["LAUNCHES"],
-        "mesh_launches": mesh["launches"]["LAUNCHES"],
+        "shell_launches": shell["launches"]["K1"],
+        "mesh_launches": mesh["launches"]["K1"],
+        "entry_launches": group8["launches"]["K1"],
     }, {
         "name": "encode_window_fused",
         "route": "cuda",
@@ -1989,8 +2187,9 @@ def main() -> int:
         **measured("k4", enc_hd, enc_sd),
         "shape": f"W={ENC_W} 1920x1088",
         "e2e_frames_per_s": enc_e2e,
-        "shell_launches": shell["launches"]["ENCODE_LAUNCHES"],
-        "mesh_launches": mesh["launches"]["ENCODE_LAUNCHES"],
+        "shell_launches": shell["launches"]["K4"],
+        "mesh_launches": mesh["launches"]["K4"],
+        "entry_launches": group8["launches"]["K4"],
     }, {
         "name": "decode_window_fused_cm",
         "route": "cuda",
@@ -2005,8 +2204,9 @@ def main() -> int:
         "ms_card_same_phase_k1": [lay_hd["bm_card"], lay_sd["bm_card"]],
         "e2e_frames_per_s": lay_e2e["coef_major"],
         "sharded_launches": sharded_launches["LAUNCHES_CM"],
-        "shell_launches": shell["launches"]["LAUNCHES_CM"],
-        "mesh_launches": mesh["launches"]["LAUNCHES_CM"],
+        "shell_launches": shell["launches"]["K2"],
+        "mesh_launches": mesh["launches"]["K2"],
+        "entry_launches": group8["launches"]["K2"],
     }, {
         "name": "decode_window_fused_i8",
         "route": "cuda",
@@ -2020,8 +2220,9 @@ def main() -> int:
         **decode_build["k3"],
         "ms_card_same_phase_k1": [lay_hd["bm_card"], lay_sd["bm_card"]],
         "e2e_frames_per_s": lay_e2e["pack_i8"],
-        "shell_launches": shell["launches"]["LAUNCHES_I8"],
-        "mesh_launches": mesh["launches"]["LAUNCHES_I8"],
+        "shell_launches": shell["launches"]["K3"],
+        "mesh_launches": mesh["launches"]["K3"],
+        "entry_launches": group8["launches"]["K3"],
     }, {
         "name": "transform_coefmajor",
         "route": "cuda",
@@ -2031,7 +2232,8 @@ def main() -> int:
         "max_abs_err": k5_err,
         **measured("k5", k5_hd, k5_sd),
         "shape": f"N={W * nb_hd} ({W} frames of 1920x1088)",
-        "mesh_launches": mesh["launches"]["LAUNCHES_K5"],
+        "mesh_launches": mesh["launches"]["K5"],
+        "entry_launches": group8["launches"]["K5"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

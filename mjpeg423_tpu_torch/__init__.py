@@ -22,10 +22,22 @@ paths; what ran on the accelerator is written again:
   ops/scale.py                box downscale on the device
   csrc/*.cu, csrc/*.cuh       the hand-written sm_90a kernels, built with
                               nvcc at first use (ops/_build.py)
-  runtime/pipeline.py         DecodePipeline on a torch device
-  codec/encoder.py            encode_frames and encode_frames_device
-  parallel/                   mesh of torch devices, sharded segmented scan
-                              and sharded decode
+  runtime/pipeline.py         DecodePipeline on a torch device, on one
+                              device or a mesh (mesh=)
+  runtime/live.py, serve.py,  live ingest, the serving pool and the player
+  playback.py                 on the pipeline's device loop
+  codec/encoder.py            encode_frames and encode_frames_device (the
+                              fused path, K4; the candidate path,
+                              use_pallas=False; both with mesh=)
+  codec/decoder.py,           host copies: the NumPy decoder and re-GOP;
+  transcode.py, io/           BMP and frame-source readers
+  parallel/                   mesh of torch devices, sharded segmented scan,
+                              sharded decode and encode, and the
+                              multi-process control plane (multihost.py)
+  cli.py                      the mjpeg423-torch command line
+  entry.py                    top-level entry points: entry() and
+                              dryrun_multichip(n)
+  examples/, scripts/, tools/ runnable examples, card measurements, timing
 
 Importing this package imports neither jax nor triton and builds nothing.
 """

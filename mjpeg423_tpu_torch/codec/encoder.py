@@ -12,17 +12,18 @@ max_i_interval frames.  The previous frame's state is round(coef/quant)
 whichever candidate wins.  It runs on NumPy and the native C codec only.
 
 Device half (from PRODUCER_JOIN_TIMEOUT_S on): the counterpart of the
-device half of mjpeg423_tpu/codec/encoder.py, on its fused select-then-pack
-structure (_encode_frames_device_fused there).  The host converts RGB to
-blocked YCbCr (float64, bit-exact with the reference's doubles) and packs;
-the device runs FDCT + quantize over windows of config.frames_per_batch
-frames (ops/encode_fused.encode_window_fused: the CUDA kernel on a CUDA
-device, its plain PyTorch version on the CPU).  The kernel returns ABSOLUTE
-quantized planes, so the whole back half (candidate sizes, smaller-wins
-frame types, container assembly) is the host half's
-encode_quantized_frames: the containers are byte-identical to
-encode_frames by construction.
+device half of mjpeg423_tpu/codec/encoder.py, with both of its structures;
+use_pallas picks between them as there.
 
+The fused select-then-pack path (_encode_frames_device_fused there and
+here, the default): the host converts RGB to blocked YCbCr (float64,
+bit-exact with the reference's doubles) and packs; the device runs FDCT +
+quantize over windows of config.frames_per_batch frames
+(ops/encode_fused.encode_window_fused: the CUDA kernel on a CUDA device, its
+plain PyTorch version on the CPU).  The kernel returns ABSOLUTE quantized
+planes, so the whole back half (candidate sizes, smaller-wins frame types,
+container assembly) is the host half's encode_quantized_frames: the
+containers are byte-identical to encode_frames by construction.
 config.overlap_device (default True) runs a producer thread that converts,
 stages and dispatches windows while the caller's thread fetches and packs
 earlier ones, as in the JAX encoder.  On CUDA the staging windows are
@@ -32,11 +33,22 @@ window tells the consumer when its planes have landed.  config.fetch_i8
 narrows each window on the device to an int16 DC and an int8 AC before the
 copy back (a window whose AC leaves int8 is fetched whole as int16).
 
-Not ported yet, and refused rather than run some other way: mesh-sharded
-encode (mesh=).  The JAX encoder's other structure, the XLA candidate path
-(encode_jax.encode_transform with a threaded candidate pack, taken there
-with use_pallas=False), is not wired in: the port has the one path, and
-parallel_entropy is accepted and ignored, as that path ignores it in JAX.
+The candidate path (use_pallas=False, on the CPU or on the card; also
+use_pallas=None on the CPU when the native packer is missing, whose
+select-then-pack would be serial pure Python; on the card None is K4):
+ops/encode.encode_transform computes both candidates of every frame on
+the device, the I candidate (DC-differenced) and the P delta against
+the previous frame, over windows of W + 1 staging
+slots whose slot 0 is the previous window's last frame (the P halo).
+Every candidate of every plane is entropy-coded, on a thread pool when
+parallel_entropy (the native coder releases the GIL), and the smaller
+wins on the host.  JAX runs this transform in XLA, outside any Pallas
+kernel, so the port runs it in plain PyTorch on the card too.
+
+mesh= (parallel.make_mesh) works with both: the fused path splits each
+window's frames over the "data" axis, K4 on every shard with no exchange;
+the candidate path stages the whole clip, as the JAX one does, and runs
+parallel/encode.encode_transform_sharded (one halo copy a shard).
 """
 from __future__ import annotations
 
@@ -61,9 +73,10 @@ from ..core.format import (
     serialize_file,
 )
 from ..native import centropy
-from ..ops import encode_fused, encode_ref, entropy_ref, resolve_device
+from ..ops import encode, encode_fused, encode_ref, entropy_ref, resolve_device
 from ..ops.transform_ref import raster_to_blocks
-from ..parallel.mesh import data_devices
+from ..parallel.encode import PLANES, encode_transform_sharded, shard_samples
+from ..parallel.mesh import DATA_AXIS, data_devices
 from ..utils.config import EncodeConfig
 from ..utils.profile import default_profiler
 
@@ -753,6 +766,118 @@ def _encode_frames_device_fused(
         gen.close()
 
 
+def _candidate_windows(frames_rgb, nb, nf, W, dev, prof):
+    """The candidate path's device half on one device: (first frame,
+    count, I candidates, P candidates) a window, as host arrays keyed by
+    plane.  I row k + 1 is frame first + k; P row k is frame first + k
+    against its predecessor (row 0 of the first window is frame 0 against
+    the zero halo, which the caller skips)."""
+    cuda = dev.type == "cuda"
+    # (plane, W + 1, B, 8, 8): slot 0 is the halo, the previous window's
+    # last frame; one copy to the device a window.
+    stage = torch.zeros((3, W + 1, nb, 8, 8), dtype=torch.uint8,
+                        pin_memory=cuda)
+    host = stage.numpy()
+    scratch: dict = {}
+    for ws in range(0, nf, W):
+        count = min(W, nf - ws)
+        with prof.time("encode/convert"):
+            for k in range(count):
+                planes = _rgb_to_blocked_planes(frames_rgb[ws + k], scratch)
+                for p, blk in enumerate(planes):
+                    np.copyto(host[p, k + 1], blk)
+        with prof.time("encode/device_transform"):
+            on_dev = stage.to(dev, non_blocking=True)
+            ci, cp = encode.encode_transform(*on_dev)
+            # .cpu() waits for the device, so the stage is free again.
+            ci = {n: v.cpu().numpy() for n, v in ci.items()}
+            cp = {n: v.cpu().numpy() for n, v in cp.items()}
+        yield ws, count, ci, cp
+        stage[:, 0].copy_(stage[:, count])  # halo for the next window
+
+
+def _encode_frames_device_candidates(
+    frames_rgb, w, h, nf, max_i_interval, entropy_encode, parallel_entropy,
+    config, devs, mesh=None, profiler=None,
+) -> bytes:
+    """The candidate path: both candidates of every frame and plane from
+    the device, entropy-coded (threaded when parallel_entropy), the
+    smaller kept (mjpeg423_tpu/codec/encoder.py:812-945)."""
+    prof = profiler or default_profiler
+    nb = (h // 8) * (w // 8)
+    bits_i: dict = {}
+    bits_p: dict = {}
+    ex = None
+    if parallel_entropy:
+        from concurrent.futures import ThreadPoolExecutor
+
+        ex = ThreadPoolExecutor()
+
+    def pack(jobs, planes_of):
+        """Entropy-code (frame, plane) jobs; planes_of(frame, plane) is
+        the (B, 64) int16 candidate."""
+        def one(job):
+            return entropy_encode(planes_of(*job))
+
+        with prof.time("encode/pack"):
+            return list(zip(jobs, ex.map(one, jobs) if ex is not None
+                            else map(one, jobs)))
+
+    try:
+        if mesh is None:
+            W = max(1, min(int(config.frames_per_batch), nf))
+            for ws, count, ci, cp in _candidate_windows(
+                    frames_rgb, nb, nf, W, devs[0], prof):
+                frames = range(ws, ws + count)
+                bits_i.update(pack(
+                    [(fi, n) for fi in frames for n in PLANES],
+                    lambda fi, n: ci[n][fi - ws + 1]))
+                bits_p.update(pack(
+                    [(fi, n) for fi in frames if fi > 0 for n in PLANES],
+                    lambda fi, n: cp[n][fi - ws]))
+        else:
+            # The whole clip, padded to a multiple of the data axis.
+            n_pad = -(-nf // mesh.shape[DATA_AXIS]) * mesh.shape[DATA_AXIS]
+            host = np.zeros((3, n_pad, nb, 8, 8), np.uint8)
+            with prof.time("encode/convert"):
+                for fi, rgb in enumerate(frames_rgb):
+                    for p, blk in enumerate(_rgb_to_blocked_planes(rgb)):
+                        host[p, fi] = blk
+            with prof.time("encode/device_transform"):
+                cand_i, cand_p = encode_transform_sharded(
+                    *shard_samples(mesh, *host), mesh=mesh)
+                # cand_p is frame-indexed: row 0 is meaningless.
+                ci = {n: v.numpy()[:nf] for n, v in cand_i.items()}
+                cp = {n: v.numpy()[:nf] for n, v in cand_p.items()}
+            bits_i.update(pack(
+                [(fi, n) for fi in range(nf) for n in PLANES],
+                lambda fi, n: ci[n][fi]))
+            bits_p.update(pack(
+                [(fi, n) for fi in range(1, nf) for n in PLANES],
+                lambda fi, n: cp[n][fi]))
+    finally:
+        if ex is not None:
+            ex.shutdown()
+
+    out_frames: list[Frame] = []
+    last_iframe = 0
+    for fi in range(nf):
+        size_i = sum(len(bits_i[(fi, n)]) for n in PLANES)
+        pick_i = (
+            fi == 0
+            or size_i <= sum(len(bits_p[(fi, n)]) for n in PLANES)
+            or fi - last_iframe >= max_i_interval
+        )
+        src = bits_i if pick_i else bits_p
+        if pick_i:
+            last_iframe = fi
+        out_frames.append(Frame(
+            T.FRAME_TYPE_I if pick_i else T.FRAME_TYPE_P,
+            *(src[(fi, n)] for n in PLANES),
+        ))
+    return serialize_file(w, h, out_frames)
+
+
 def encode_frames_device(
     frames_rgb: Sequence[np.ndarray],
     max_i_interval: int | None = None,
@@ -767,23 +892,31 @@ def encode_frames_device(
     """Byte-identical to encode_frames, with FDCT + quantize on `device`.
 
     The signature of mjpeg423_tpu's encode_frames_device plus `device`:
-    "cuda" (the default) runs the hand-written kernel and raises
-    RuntimeError when torch sees no CUDA device; "cpu" runs the plain
-    PyTorch version and must be asked for by name.  use_pallas, when given,
-    must agree with the device (True exactly on CUDA).  parallel_entropy is
-    accepted and ignored (the select-then-pack back half packs one frame
-    at a time).
+    "cuda" (the default) runs on the current card and raises RuntimeError
+    when torch sees no CUDA device; "cpu" must be asked for by name.
 
-    mesh= (parallel.make_mesh): each window's frames split over the
-    mesh's "data" axis and every data shard runs K4 on its slice on its
-    own device, with no exchange (the split of
+    use_pallas picks the structure, as in the JAX encoder, and keeps its
+    meaning of "the hand-written kernel": None (default) is the fused
+    select-then-pack path (K4 on CUDA, its plain version on the CPU; on
+    the CPU without the native packer, the candidate path); True is the
+    fused path and must have CUDA devices; False is the candidate path,
+    on the CPU or on the card (the plain PyTorch transform, as JAX's is
+    XLA).  parallel_entropy spreads the candidate path's entropy coding
+    over a thread pool; the fused path packs one frame at a time and
+    ignores it.
+
+    mesh= (parallel.make_mesh): the mesh's devices take the place of
+    `device`, all CUDA or all CPU.  The fused path splits each window's
+    frames over the "data" axis, every data shard running K4 on its slice
+    on its own device with no exchange (the split of
     parallel/encode.encode_window_fused_sharded), so the window is rounded
     down to a multiple of the data-axis size, and fetch_i8 is off.  The
-    mesh's devices take the place of `device`: all CUDA (the kernel on
-    each card) or all CPU.
+    candidate path stages the whole clip and runs
+    parallel/encode.encode_transform_sharded.
     """
-    devs = ([resolve_device(device, use_pallas)] if mesh is None
-            else data_devices(mesh, use_pallas))
+    kernel = True if use_pallas else None  # False runs on either device
+    devs = ([resolve_device(device, kernel)] if mesh is None
+            else data_devices(mesh, kernel))
     config = config or EncodeConfig()
     if max_i_interval is None:
         max_i_interval = config.max_i_interval
@@ -792,6 +925,17 @@ def encode_frames_device(
     h, w = first.shape[:2]
     if h % 8 or w % 8:
         raise ValueError(f"dimensions must be multiples of 8, got {w}x{h}")
+    if use_pallas is None:
+        # On the card the default is K4.  On the CPU the fused path's back
+        # half packs through the native coder; without it that is serial
+        # pure Python, so take the threaded candidates there, as JAX does.
+        use_pallas = devs[0].type == "cuda" or centropy.native_available()
+    if not use_pallas:
+        return _encode_frames_device_candidates(
+            frames_rgb, w, h, len(frames_rgb), max_i_interval,
+            entropy_encode, parallel_entropy, config, devs, mesh=mesh,
+            profiler=profiler,
+        )
     return _encode_frames_device_fused(
         frames_rgb, w, h, len(frames_rgb), max_i_interval, entropy_encode,
         config, devs, profiler=profiler,

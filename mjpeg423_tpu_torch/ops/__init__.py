@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from ._counters import launch_counts, reset_counts  # noqa: F401
+
 
 def resolve_device(device, use_pallas: bool | None = None) -> torch.device:
     """The torch device an entry point runs on: cpu (the plain PyTorch

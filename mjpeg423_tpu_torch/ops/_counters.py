@@ -4,11 +4,23 @@ Each wrapper module keeps one LaunchCounts with a name per kernel and adds
 one where it launches that kernel, nowhere else.  A run resets the counts
 to 0 and reads them back to show which kernel did its work.  The module
 serves the names as read-only attributes too (``transform_fused.LAUNCHES``)
-through ``module_getattr``.
+through ``module_getattr``.  launch_counts() and reset_counts() read and
+reset every wrapper's counts at once, by the kernels' names K1-K5.
 """
 from __future__ import annotations
 
+import importlib
 import threading
+
+# Each kernel of the port, by its name in the port's tables: the wrapper
+# module under ops/ and the count that wrapper adds to where it launches it.
+KERNEL_COUNTERS = {
+    "K1": ("transform_fused", "LAUNCHES"),
+    "K2": ("transform_fused", "LAUNCHES_CM"),
+    "K3": ("transform_fused", "LAUNCHES_I8"),
+    "K4": ("encode_fused", "LAUNCHES"),
+    "K5": ("transform_coefmajor", "LAUNCHES_K5"),
+}
 
 
 class LaunchCounts:
@@ -43,3 +55,20 @@ class LaunchCounts:
                 return self.get(name)
             raise AttributeError(f"module {module!r} has no attribute {name!r}")
         return __getattr__
+
+
+def _wrapper_counts(module: str) -> LaunchCounts:
+    # Imported on first use: the wrappers import this module.
+    return importlib.import_module(f".{module}", __package__).COUNTS
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch count, {"K1": .., ..., "K5": ..}."""
+    return {k: _wrapper_counts(m).get(name)
+            for k, (m, name) in KERNEL_COUNTERS.items()}
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for module in {m for m, _ in KERNEL_COUNTERS.values()}:
+        _wrapper_counts(module).reset()

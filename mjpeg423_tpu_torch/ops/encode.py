@@ -14,8 +14,9 @@ results are byte-equal to the JAX path and to the NumPy oracle
     round((double)c / q) for every int16 c (quantize.c:16).
 
 These functions are the plain version the CUDA encode kernel is held
-against, and what a CPU tensor runs.  Nothing on the card's main path
-calls them.
+against, and the transform of the encoder's candidate path
+(encode_frames_device(use_pallas=False)) on the CPU and on the card alike:
+the JAX package runs encode_transform in XLA, outside any Pallas kernel.
 """
 from __future__ import annotations
 

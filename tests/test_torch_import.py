@@ -58,6 +58,7 @@ SCRIPTS = {
         import mjpeg423_tpu_torch.io
         import mjpeg423_tpu_torch.runtime.serve
         import mjpeg423_tpu_torch.utils.debug
+        import mjpeg423_tpu_torch.entry
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "triton")
                and sys.modules[m] is not None]
