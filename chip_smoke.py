@@ -135,6 +135,14 @@ just before it:
   8c. Profiler(trace_dir=) around DecodePipeline.decode_array of the
      640x480 clip: trace.json holds one decode_window_kernel event a K1
      launch, and the frames are phase 4's.
+The port's bench has its own phase (bench_phases):
+  9.  python -m mjpeg423_tpu_torch.bench --small in four processes on the
+     card, started together: the fused headline with the stages e2e,
+     encode_transform and latency, and the cm, i8 and pallas paths as the
+     headline each with no stages.  Each must exit 0 with a positive
+     headline of its --path and no error row, and each path and stage row
+     must count launches of its own kernel and of no other ([bench] lines,
+     a [bench-summary] JSON line).
 "[clock]" lines give the seconds since the start after each group of phases.
 The encode path has its own phases beside these:
   3b. the fused encode-window kernel (FDCT + quantize) against its plain
@@ -198,87 +206,14 @@ CLIPS = (("1920x1088", 30, 12), ("640x480", 48, 24))
 # The (data, block) meshes of the sharded decodes that run K5.
 K5_MESHES = ((4, 1), (2, 2))
 
-# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): 3.35 TB/s
-# of device memory; 67 TFLOP/s float32 outside the tensor cores, which is 2
-# operations on 128 lanes per SM and clock.  An int32 instruction issues on
-# 64 lanes per SM and clock, on one of two pipes: IMAD (multiply-add, and an
-# add, a left shift or a move written as one) on the FMA pipe; add, logic,
-# shift, permute, min/max, compare and select on the ALU pipe.  The two
-# issue side by side (mjpeg423_tpu_torch/scripts/int_pipes.py on an H100 at
-# 700 W: 33 + 69 thread-instructions per SM and clock in a 1:2 mix, 86 for
-# IMAD alone, 67 for the ALU alone), so the least time for a count of
-# instructions that a kernel may balance between the pipes is the count
-# over 128 lanes: half the data sheet's float32 rate.  bound_ms_one_pipe is
-# the stricter reading, all of them on one pipe (a quarter).  Each of add,
-# three-operand add (IADD3), multiply, multiply-add (IMAD), shift, min/max,
-# compare and select counts as ONE operation.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_OPS_PER_S = 67e12 / 2
-# The least machine operations that compute each function, not the
-# operators of the source text: a multiply and the add that depends on it
-# are one IMAD (so is `x << 13` followed by an add: a multiply by 8192), a
-# sum of three terms is one IADD3, and a rounding constant or a level shift
-# rides in an add that is there anyway.  Address arithmetic and the
-# unpacking of loaded words are not counted.
-#   islow IDCT butterfly, 44: the even part's rotation 4 (add, multiply, 2
-#     IMAD) and its four sums 6 (x0 +- x4, 4 IMAD by 8192); the odd part 18
-#     (4 adds; z5 add + multiply; z3, z4 2 IMAD; z1, z2 2 multiplies; t0..t3
-#     an add and an IMAD each); 8 outputs of an IADD3 with the rounding
-#     constant and a shift.  A plane block is 16 butterflies and 64 clamps
-#     of 2 (the +128 rides in pass 2's rounding constant);
-#   colour conversion and pack of one pixel, 16: y << 14, r and b one IMAD
-#     each, g two (the chroma's -128 folds into its clamp's limits), three
-#     normalizations of shift, min, max, and the pack as 2 IMAD;
-#   dequantization and recurrence of one coefficient, 3: the select of the
-#     previous state, one IMAD, the int16 sign extension;
-#   forward DCT butterfly, 44 in both passes: 12 sums and differences;
-#     outputs 0 and 4 two each; 2 and 6 six together (add, 2 IMAD with the
-#     rounding constant in the first, IMAD, 2 shifts); the odd part 22 (4
-#     adds; z5 add + IMAD with the rounding constant; z3, z4 2 IMAD; z1, z2
-#     2 multiplies; 4 outputs of IMAD, add, shift).  A plane block is 16
-#     butterflies, 128 int16 sign extensions and 64 quantizations of 6
-#     (abs, 2|c| + q, high multiply by q's reciprocal, shift, compare,
-#     negating select).
-OPS_IDCT_PLANE = 16 * 44 + 64 * 2
-OPS_COLOUR_BLOCK = 64 * 16
-OPS_RECUR_PLANE = 64 * 3
-OPS_FDCT_QUANT_PLANE = 16 * 44 + 128 + 64 * 6
-OPS_DECODE_BLOCK = 3 * (OPS_IDCT_PLANE + OPS_RECUR_PLANE) + OPS_COLOUR_BLOCK
-OPS_K5_BLOCK = 3 * OPS_IDCT_PLANE + OPS_COLOUR_BLOCK
-
-
-def bound(nbytes: int, ops: int) -> dict:
-    """The least milliseconds the card could take: each input byte read
-    once and each output byte written once at the memory rate, or the
-    least int32 instructions (see OPS_*) at one per lane and clock on both
-    integer pipes, whichever is larger; and the same with one pipe."""
-    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_ms_one_pipe": max(by_bytes, 2 * by_ops),
-            "bytes": nbytes, "operations": ops}
-
-
 def kernel_bounds(nb: int) -> dict:
-    """The five kernels' bounds for windows of nb blocks a plane (W frames
-    for the decode kernels, ENC_W for the encode kernel)."""
-    dec_ops = W * nb * OPS_DECODE_BLOCK
-    return {
-        "k1": bound(decode_window_bytes(W, nb, 3 * 64 * 2), dec_ops),
-        "k2": bound(decode_window_bytes(W, nb, 3 * 64 * 2), dec_ops),
-        "k3": bound(decode_window_bytes(W, nb, 3 * (64 + 2)), dec_ops),
-        "k4": bound(ENC_W * nb * 3 * 64 * (1 + 2),
-                    ENC_W * nb * 3 * OPS_FDCT_QUANT_PLANE),
-        "k5": bound(W * nb * 64 * (3 * 2 + 4), W * nb * OPS_K5_BLOCK),
-    }
+    """The five kernels' bounds (mjpeg423_tpu_torch/tools/bounds.py) for
+    windows of nb blocks a plane (W frames for the decode kernels, ENC_W
+    for the encode kernel)."""
+    from mjpeg423_tpu_torch.tools.bounds import kernel_bound
 
-
-def decode_window_bytes(w: int, nb: int, in_bytes_per_block: int) -> int:
-    """Bytes a fused decode window must move: amplitudes, the I-frame mask,
-    the two quant rows, the carry in and out, and the frames out."""
-    return (w * nb * in_bytes_per_block + w + 2 * 64 * 2
-            + 2 * 3 * nb * 64 * 2 + w * nb * 64 * 4)
+    return {k: kernel_bound(k, ENC_W if k == "k4" else W, nb)
+            for k in ("k1", "k2", "k3", "k4", "k5")}
 
 
 def synthetic_clip(rng, num_frames: int, h: int, w: int) -> list[np.ndarray]:
@@ -1225,6 +1160,95 @@ def entry_phases(dev: torch.device, clips: dict, gops: dict,
             "walls_s": {k: round(v, 4) for k, v in walls.items()}}
 
 
+# Phase 9's bench runs: the headline path, extra arguments, and the kernel
+# each row must have launched (ops.launch_counts names; None: none at all).
+BENCH_RUNS = (
+    ("fused", ["--stages", "e2e,encode_transform,latency"]),
+    ("cm", ["--no-stages"]),
+    ("i8", ["--no-stages"]),
+    ("pallas", ["--no-stages"]),
+)
+BENCH_STAGE_KERNEL = {"e2e": "K1", "encode_transform": "K4", "latency": "K1"}
+
+
+def _launched_only(counts: dict, kernel: str) -> bool:
+    return counts.get(kernel, 0) > 0 and not any(
+        v for k, v in counts.items() if k != kernel)
+
+
+def bench_phases(failures: list) -> dict:
+    """Phase 9: the port's bench (mjpeg423_tpu_torch/bench.py) at --small
+    on the card, one process per headline path of BENCH_RUNS, all started
+    together; each held to exit 0, a positive headline of its path, no
+    error row and launches of each row's own kernel only."""
+    import os
+    import tempfile
+
+    from mjpeg423_tpu_torch.bench import PATH_KERNEL
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    summary = {}
+    with tempfile.TemporaryDirectory() as td:
+        procs = {}
+        try:
+            for path, extra in BENCH_RUNS:
+                out = os.path.join(td, f"{path}.json")
+                cmd = [sys.executable, "-m", "mjpeg423_tpu_torch.bench",
+                       "--small", "--path", path, "--paths", path,
+                       "--out", out] + extra
+                procs[path] = (subprocess.Popen(
+                    cmd, cwd=root, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True), out)
+            for path, (proc, out) in procs.items():
+                try:
+                    stdout, stderr = proc.communicate(timeout=300)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    stdout, stderr = proc.communicate()
+                lines = stdout.strip().splitlines()
+                try:
+                    head = json.loads(lines[-1])
+                    with open(out) as fh:
+                        tree = json.load(fh)
+                except (IndexError, OSError, json.JSONDecodeError):
+                    _check(failures, "bench", False,
+                           f"--path {path}: rc {proc.returncode}, no result: "
+                           f"{stderr.strip()[-300:]}")
+                    continue
+                rows = {f"path {k}": (v, PATH_KERNEL[k])
+                        for k, v in tree["paths"].items()}
+                rows.update({f"stage {k}": (v, BENCH_STAGE_KERNEL[k])
+                             for k, v in tree.get("stages", {}).items()})
+                errors = [k for k, (v, _) in rows.items() if "error" in v]
+                wrong = [k for k, (v, kern) in rows.items()
+                         if "error" not in v
+                         and not _launched_only(v["launches"], kern)]
+                ok = (proc.returncode == 0 and head.get("path") == path
+                      and head.get("value", 0) > 0 and not errors
+                      and not wrong
+                      and "error" not in tree.get("kernel_quality", {}))
+                summary[path] = {
+                    "rc": proc.returncode, "headline": head,
+                    "launches": {k: v.get("launches") for k, (v, _) in
+                                 rows.items()},
+                    "kernel_quality": tree.get("kernel_quality"),
+                    "ms_card": tree["paths"][path].get("ms_card"),
+                    "wall_s": tree.get("wall_s"),
+                }
+                _check(failures, "bench",
+                       ok, f"--path {path}: rc {proc.returncode}, headline "
+                       f"{head.get('value')} frames/s, rows {sorted(rows)}, "
+                       f"errors {errors}, wrong launches {wrong}, launches "
+                       f"{json.dumps(summary[path]['launches'])}")
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    print(f"[bench-summary] {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2092,6 +2116,10 @@ def main() -> int:
     # ---- 8. the candidate encoder, the entry points, a traced decode -------
     group8 = entry_phases(dev, clips, gops, failures)
     clock("8")
+
+    # ---- 9. the port's bench on the card -----------------------------------
+    bench_phases(failures)
+    clock("9")
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib")

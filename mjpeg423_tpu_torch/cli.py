@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch/CUDA port: decode / encode / play /
-info / thumbs / transcode / selftest / serve.
+info / thumbs / transcode / selftest / serve / bench.
 
 The counterpart of mjpeg423_tpu/cli.py, copied from it at commit bfc8537,
 with the same commands, arguments and output files.  What differs is the
@@ -7,7 +7,8 @@ device: every command that decodes or encodes runs on "cuda" unless it is
 given --device cpu (or the original's --no-pallas, which means the same),
 and never falls back from one to the other.  decode --all-devices shards
 the stream's GOPs over every card (with --device cpu: a one-cell CPU mesh);
-bench waits for the port's own bench.
+bench hands its arguments on to the port's bench (mjpeg423_tpu_torch/bench.py),
+in this process.
 
 The reference's UI is four pushbuttons polled by the core0 main loop
 (reference: core0/software/main.c:29-127 — Play/Pause, NextVideo, FF, RW) on
@@ -573,6 +574,15 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from . import bench
+
+    rest = list(args.rest)
+    if hasattr(args, "device"):
+        rest += ["--device", args.device]
+    return bench.main(rest)
+
+
 def main(argv=None) -> int:
     # --device is taken before or after the command; given in neither
     # place it is absent, and the command runs on cuda (_device).
@@ -719,7 +729,17 @@ def main(argv=None) -> int:
                         "I-frames) instead of failing the stream")
     p.set_defaults(fn=cmd_serve)
 
-    args = ap.parse_args(argv)
+    p = sub.add_parser("bench", parents=[common], add_help=False,
+                       help="run the port's bench (arguments are the "
+                            "bench's: mjpeg423-torch bench -h)")
+    p.set_defaults(fn=cmd_bench)
+
+    # bench's arguments are its own: everything the CLI does not know is
+    # handed on, in order.
+    args, rest = ap.parse_known_args(argv)
+    if args.cmd != "bench" and rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args.rest = rest
     return args.fn(args)
 
 

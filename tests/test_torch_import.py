@@ -59,6 +59,8 @@ SCRIPTS = {
         import mjpeg423_tpu_torch.runtime.serve
         import mjpeg423_tpu_torch.utils.debug
         import mjpeg423_tpu_torch.entry
+        import mjpeg423_tpu_torch.bench
+        import mjpeg423_tpu_torch.tools.bounds
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "triton")
                and sys.modules[m] is not None]
