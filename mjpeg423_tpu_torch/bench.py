@@ -90,12 +90,6 @@ STAGES = ("parse", "overlap", "pipeline_1080p", "sharded", "e2e_device",
           "encode_transform", "geometry_sweep")
 HOST_STAGES = ("parse", "encode", "transcode")
 
-# The reference probe rate of a clean hour on the bench's host, Mblocks/s.
-# The port has recorded none for its hosts, so the default 0 disables the
-# absolute criterion: an attempt is clean when its probes agree (spread
-# <= 1.5).  Set BENCH_CLEAN_PROBE_MBLOCKS to a host's clean rate to use it.
-CLEAN_PROBE_MBLOCKS = float(os.environ.get("BENCH_CLEAN_PROBE_MBLOCKS", "0"))
-
 
 class BenchError(RuntimeError):
     """An output that differs from its reference, or a path that cannot run."""
@@ -203,9 +197,10 @@ def counted(row: dict, key: str = "launches"):
     row[key] = launch_counts()
 
 
-def _timed_reps(fn, reps, budget_s=None):
-    """Time fn() `reps` times (already warmed; fn ends in a synchronize or
-    a host fetch); every rep counts.  Returns (median seconds, stats)."""
+def _samples(fn, reps, budget_s=None) -> list:
+    """Seconds of fn() (already warmed; fn ends in a synchronize or a host
+    fetch) `reps` times, or fewer once budget_s is spent; sorted, and
+    every rep counts."""
     times = []
     t_all = time.perf_counter()
     for _ in range(reps):
@@ -214,7 +209,12 @@ def _timed_reps(fn, reps, budget_s=None):
         times.append(time.perf_counter() - t0)
         if budget_s is not None and time.perf_counter() - t_all > budget_s:
             break
-    times.sort()
+    return sorted(times)
+
+
+def _timed_reps(fn, reps, budget_s=None):
+    """_samples of fn(): (median seconds, stats)."""
+    times = _samples(fn, reps, budget_s)
     med = times[len(times) // 2]
     return med, {
         "reps": len(times),
@@ -242,6 +242,14 @@ def _chain_seconds(launch, n: int, dev: torch.device) -> float:
     return time.perf_counter() - t0
 
 
+def _chain_length(launch, dev: torch.device, wall_s: float) -> int:
+    """The number of launch() calls back to back that take wall_s."""
+    n = 1
+    while (dt := _chain_seconds(launch, n, dev)) < wall_s:
+        n *= max(2, int(wall_s / max(dt, 1e-5)) + 1)
+    return n
+
+
 def bench_chained(launch, dev: torch.device, reps: int = 5):
     """Time a chain of launches, n grown until the chain takes MIN_WALL_S.
 
@@ -252,12 +260,7 @@ def bench_chained(launch, dev: torch.device, reps: int = 5):
     launch()  # warm
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    n = 1
-    while True:
-        dt = _chain_seconds(launch, n, dev)
-        if dt >= MIN_WALL_S:
-            break
-        n *= max(2, int(MIN_WALL_S / max(dt, 1e-5)) + 1)
+    n = _chain_length(launch, dev, MIN_WALL_S)
     times = sorted(_chain_seconds(launch, n, dev) for _ in range(reps))
     med = times[len(times) // 2]
     return med / n, n, {
@@ -457,10 +460,11 @@ def _device_time_us(evt) -> float:
 def kernel_quality(launch, n: int, path: str, f: int, h: int, w: int,
                    dev: torch.device, trace_dir: str | None) -> dict:
     """One torch.profiler capture of n chained launches of the headline
-    path: the path's kernel's microseconds a launch, the bytes a batch
-    moves (int16 amplitudes in, uint32 pixels out, the carry read and
-    written) over that time, and the share of the kernel's bound
-    (tools/bounds.py) its time reaches."""
+    path: the path's kernel's microseconds a launch, the bytes its call
+    must move (tools/bounds.py, the count its bound uses) over that time,
+    and the share of that bound its time reaches.  The plain path (xla)
+    has no kernel: its row counts int16 amplitudes in, uint32 pixels out
+    and the carry read and written."""
     from torch.profiler import ProfilerActivity, profile
 
     n = min(n, 200)
@@ -483,22 +487,23 @@ def kernel_quality(launch, n: int, path: str, f: int, h: int, w: int,
     total_us = sum(t for t, _ in by_name.values())
     dom, (dom_us, dom_n) = max(by_name.items(), key=lambda kv: kv[1][0])
     b = (h // 8) * (w // 8)
-    nbytes = 3 * f * b * 64 * 2 + f * h * w * 4 + 2 * 3 * b * 64 * 2
+    k = PATH_KERNEL[path]
+    bd = None if k is None else kernel_bound(k.lower(), f, b)
+    nbytes = (3 * f * b * 64 * 2 + f * h * w * 4 + 2 * 3 * b * 64 * 2
+              if bd is None else bd["bytes"])
     out = {"path": path, "launches_traced": n,
            "dominant_op": dom[:80],
            "dominant_share_of_device_time": round(dom_us / total_us, 4),
            "device_time_ms": round(total_us / 1e3, 3),
            "trace_wall_ms": round(wall_s * 1e3, 3),
            "approx_bytes_per_batch": nbytes}
-    k = PATH_KERNEL[path]
-    if k is None:
+    if bd is None:
         return out
     fn = KERNEL_FUNCTION[k]
     hits = [(t, c) for name, (t, c) in by_name.items() if fn in name]
     if not hits:
         raise BenchError(f"kernel_quality: no {fn} event in the trace")
     k_us = sum(t for t, _ in hits) / sum(c for _, c in hits)
-    bd = kernel_bound(k.lower(), f, b)
     out.update({
         "kernel": fn,
         "kernel_us_per_launch": round(k_us, 2),
@@ -582,10 +587,9 @@ def stage_parse(run: Run) -> dict:
     output), a balanced batch of 3f frames, and sparse content.
 
     Contention-aware: every attempt brackets its timed section with the
-    calibration probe; while the probes disagree (spread > 1.5, or a rate
-    below BENCH_CLEAN_PROBE_MBLOCKS) the stage retries, up to
-    BENCH_PARSE_ATTEMPTS attempts BENCH_PARSE_RETRY_SPACING_S apart, and
-    stops early when an attempt's probe matches the previous one (a
+    calibration probe; while the probes disagree (spread > 1.5) the
+    stage retries, up to BENCH_PARSE_ATTEMPTS attempts
+    BENCH_PARSE_RETRY_SPACING_S apart, and stops early when an attempt's probe matches the previous one (a
     steadily slow host, not transient contention).  The reported attempt
     is the one whose probes are cleanest (least spread), never the one
     with the highest rate; every attempt is listed."""
@@ -696,10 +700,7 @@ def stage_parse(run: Run) -> dict:
             "probe_pre": res["calibration_pre"],
             "probe_post": res["calibration_post"],
         })
-        clean = (rate is None
-                 or ((CLEAN_PROBE_MBLOCKS <= 0
-                      or rate >= 0.6 * CLEAN_PROBE_MBLOCKS)
-                     and spread <= 1.5))
+        clean = rate is None or spread <= 1.5
         steady = (rate is not None and prev_rate is not None
                   and 0.9 <= rate / max(prev_rate, 1e-9) <= 1.1)
         prev_rate = rate
@@ -712,7 +713,6 @@ def stage_parse(run: Run) -> dict:
     _, att, best = min(results, key=lambda r: r[:2])
     best["attempts"] = attempts
     best["reported_attempt"] = att
-    best["clean_probe_mblocks_baseline"] = CLEAN_PROBE_MBLOCKS
     best["calibration"] = best.get("calibration_pre")
     return best
 
@@ -910,13 +910,8 @@ def _latency_one_geometry(run: Run, h, w, row_budget_s=20.0, max_samples=15):
                          ("seek_ms", lambda: seek(False)),
                          ("seek_device_ms", lambda: seek(True))):
             fn()  # warm this call shape
-            samples = []
-            t_budget = time.perf_counter() + row_budget_s
-            while len(samples) < max_samples and time.perf_counter() < t_budget:
-                t0 = time.perf_counter()
-                fn()
-                samples.append((time.perf_counter() - t0) * 1e3)
-            samples.sort()
+            samples = [t * 1e3 for t in _samples(fn, max_samples,
+                                                  row_budget_s)]
             res[name] = round(samples[len(samples) // 2], 3)
             res[name + "_p90"] = round(
                 samples[max(0, int(len(samples) * 0.9) - 1)], 3)
@@ -943,13 +938,7 @@ def _seek_decomposition(run: Run, pipe, data, amps, gop, f_gop, h, w) -> dict:
 
     def median_ms(fn, n):
         fn()  # warm
-        ts = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            fn()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        ts.sort()
-        return ts[len(ts) // 2]
+        return _timed_reps(fn, n)[0] * 1e3
 
     def h2d():
         torch.from_numpy(payload).to(run.dev)
@@ -975,15 +964,12 @@ def _seek_decomposition(run: Run, pipe, data, amps, gop, f_gop, h, w) -> dict:
     return out
 
 
-def stage_pipeline_1080p(run: Run, kernel_fps: float = 0.0,
-                         kernel_fps_bm: float = 0.0, parse_iso: float = 0.0,
-                         parse_iso_cm: float = 0.0) -> dict:
+def stage_pipeline_1080p(run: Run) -> dict:
     """Sustained single-stream 1080p decode to device-resident frames
     through DecodePipeline.decode (parse || device overlap, bounded
-    in-flight windows), default and pack_i8; the pipeline's own parse rate
-    in both layouts; and the projection min(parse, kernel) per layout from
-    this run's kernel rates (kernel_fps: cm, kernel_fps_bm: fused) and the
-    parse stage's isolated rates, as the parent hands them down."""
+    in-flight windows), default and pack_i8; and the pipeline's own parse
+    rate in both layouts.  main() adds the projections from this run's
+    other rows (pipeline_projection)."""
     if run.small:
         h, w, f_gop, reps_c = 272, 480, 8, 2
     else:
@@ -1031,49 +1017,58 @@ def stage_pipeline_1080p(run: Run, kernel_fps: float = 0.0,
     _log(f"stage=pipeline_1080p: {nf} frames @ {w}x{h}, "
          f"{res['frames_per_s']:.1f} frames/s (i8 {res['frames_per_s_i8']}, "
          f"parse {parse_fps:.1f})")
-    pairings = {}
-    if kernel_fps:
-        pairings["cm"] = (min(parse_lay["cm"][0], kernel_fps), kernel_fps)
-    if kernel_fps_bm:
-        pairings["bm"] = (min(parse_lay["bm"][0], kernel_fps_bm),
-                          kernel_fps_bm)
+    return res
+
+
+def pipeline_projection(row: dict, paths: dict, stages: dict) -> dict:
+    """pipeline_1080p's projections min(parse, kernel), per layout (bm:
+    the fused path, cm: the cm path), from this run's rows: with the
+    pipeline's in-process parse rates (row), and with the parse stage's
+    isolated rates; the layout that projects higher is reported."""
+    kern = {"bm": paths.get("fused", {}).get("frames_per_s"),
+            "cm": paths.get("cm", {}).get("frames_per_s")}
+    pst = stages.get("parse") or {}
+    parse_in = {"bm": row["parse_fps_bm"], "cm": row["parse_fps_cm"]}
+    parse_iso = {"bm": pst.get("frames_per_s_balanced")
+                 or pst.get("frames_per_s"),
+                 "cm": pst.get("cm_frames_per_s")}
+    out = {}
+    pairings = {lay: (min(parse_in[lay], k), parse_in[lay], k)
+                for lay, k in kern.items() if k}
     if pairings:
         lay = max(pairings, key=lambda k: pairings[k][0])
-        proj, k_fps = pairings[lay]
-        p_fps = parse_lay[lay][0]
-        res["projected_frames_per_s_inprocess"] = round(proj, 1)
-        res["projection_inputs"] = {
+        proj, p_fps, k_fps = pairings[lay]
+        out["projected_frames_per_s_inprocess"] = round(proj, 1)
+        out["projection_inputs"] = {
             "layout": lay, "parse_fps": round(p_fps, 1),
             "kernel_fps": round(k_fps, 1),
             "bound": "parse" if p_fps < k_fps else "kernel",
             "pairings": {k: round(v[0], 1) for k, v in pairings.items()},
         }
-        res["device_idle_fraction_projected"] = round(
+        out["device_idle_fraction_projected"] = round(
             max(0.0, 1.0 - proj / k_fps), 4)
-    iso = {}
-    if parse_iso and kernel_fps_bm:
-        iso["bm"] = (min(parse_iso, kernel_fps_bm), parse_iso, kernel_fps_bm)
-    if parse_iso_cm and kernel_fps:
-        iso["cm"] = (min(parse_iso_cm, kernel_fps), parse_iso_cm, kernel_fps)
+    iso = {lay: (min(parse_iso[lay], k), parse_iso[lay], k)
+           for lay, k in kern.items() if k and parse_iso[lay]}
     if iso:
         lay = max(iso, key=lambda k: iso[k][0])
         proj, p_fps, k_fps = iso[lay]
-        res["projected_frames_per_s"] = round(proj, 1)
-        res["projected_frames_per_s_isolated_parse"] = round(proj, 1)
-        res["projection_isolated_inputs"] = {
+        out["projected_frames_per_s"] = round(proj, 1)
+        out["projected_frames_per_s_isolated_parse"] = round(proj, 1)
+        out["projection_isolated_inputs"] = {
             "layout": lay, "parse_fps_isolated": round(p_fps, 1),
             "kernel_fps": round(k_fps, 1),
             "pairings": {k: round(v[0], 1) for k, v in iso.items()},
         }
-    return res
+    return out
 
 
 def stage_overlap(run: Run) -> dict:
     """Whether the host parse rate and the kernel rate coexist: the parse
     runs at full tilt on the host while a thread streams pre-staged windows
     through K1 on the card (each call a chain of launches ending in a
-    synchronize, ~0.5 s).  Both isolated rates are measured in this process
-    first, so the ratios isolate the cost of running concurrently."""
+    synchronize, MIN_WALL_S long).  Both isolated rates are measured in
+    this process first, so the ratios isolate the cost of running
+    concurrently."""
     if not centropy.native_available():
         raise BenchError("overlap: the native codec is unavailable")
     f, b, h, w = run.f, run.b, run.h, run.w
@@ -1103,9 +1098,7 @@ def stage_overlap(run: Run) -> dict:
     def launch():
         _, state[0] = tf.decode_window_fused(d_amps, d_seg, state[0], **kw)
 
-    iters = 1
-    while (dt := _chain_seconds(launch, iters, run.dev)) < 0.5:
-        iters *= max(2, int(0.5 / max(dt, 1e-5)) + 1)
+    iters = _chain_length(launch, run.dev, MIN_WALL_S)
 
     def kernel_call():
         _chain_seconds(launch, iters, run.dev)
@@ -1342,7 +1335,7 @@ STAGE_FUNCTIONS = {
 
 
 def run_stage(stage: str, dev: torch.device, small: bool,
-              frames: int | None = None, **kw) -> dict:
+              frames: int | None = None) -> dict:
     """One stage in this process: its row, with the environment keys
     (host stages run with no device)."""
     host = stage in HOST_STAGES
@@ -1350,7 +1343,7 @@ def run_stage(stage: str, dev: torch.device, small: bool,
     run = Run(None if host else dev, small, h, w, f)
     whole = {}
     with counted(whole):  # a stage that counts its timed calls keeps those
-        row = STAGE_FUNCTIONS[stage](run, **kw)
+        row = STAGE_FUNCTIONS[stage](run)
     return {**whole, **row, **environment(run.dev)}
 
 
@@ -1447,14 +1440,6 @@ def _args(argv):
                     help="write the full result tree here")
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="keep the headline chain's torch.profiler trace")
-    ap.add_argument("--kernel-fps", type=float, default=0.0,
-                    help="pipeline_1080p: the cm path's frames/s")
-    ap.add_argument("--kernel-fps-bm", type=float, default=0.0,
-                    help="pipeline_1080p: the fused path's frames/s")
-    ap.add_argument("--parse-fps-isolated", type=float, default=0.0,
-                    help="pipeline_1080p: the parse stage's rate")
-    ap.add_argument("--parse-fps-isolated-cm", type=float, default=0.0,
-                    help="pipeline_1080p: the parse stage's cm rate")
     args = ap.parse_args(argv)
     args.paths = [p for p in args.paths.split(",") if p]
     args.stages = [] if args.no_stages else [
@@ -1480,13 +1465,7 @@ def main(argv=None) -> int:
         torch.device("cpu")
     small = args.small or dev.type == "cpu"
     if args.stage is not None:
-        kw = {}
-        if args.stage == "pipeline_1080p":
-            kw = dict(kernel_fps=args.kernel_fps,
-                      kernel_fps_bm=args.kernel_fps_bm,
-                      parse_iso=args.parse_fps_isolated,
-                      parse_iso_cm=args.parse_fps_isolated_cm)
-        print(json.dumps(run_stage(args.stage, dev, small, args.frames, **kw)))
+        print(json.dumps(run_stage(args.stage, dev, small, args.frames)))
         return 0
 
     t_start = time.perf_counter()
@@ -1550,28 +1529,17 @@ def main(argv=None) -> int:
                                           "(BENCH_STAGE_BUDGET_S) is spent"}
                 failed = True
                 continue
-            st_extra = list(extra)
-            if stage == "pipeline_1080p":
-                for flag, key in (("--kernel-fps", "cm"),
-                                  ("--kernel-fps-bm", "fused")):
-                    if "frames_per_s" in paths.get(key, {}):
-                        st_extra += [flag, str(paths[key]["frames_per_s"])]
-                pst = stages.get("parse") or {}
-                iso = pst.get("frames_per_s_balanced") or pst.get(
-                    "frames_per_s")
-                if iso:
-                    st_extra += ["--parse-fps-isolated", str(iso)]
-                if pst.get("cm_frames_per_s"):
-                    st_extra += ["--parse-fps-isolated-cm",
-                                 str(pst["cm_frames_per_s"])]
             t_stage = time.perf_counter()
             stages[stage] = _stage_subprocess(stage, min(remaining, cap),
-                                              st_extra)
+                                              extra)
             stages[stage]["stage_wall_s"] = round(
                 time.perf_counter() - t_stage, 1)
             if "error" in stages[stage]:
                 failed = True
                 _log(f"stage {stage} failed: {stages[stage]['error']}")
+        pipe_row = stages.get("pipeline_1080p", {"error": None})
+        if "error" not in pipe_row:
+            pipe_row.update(pipeline_projection(pipe_row, paths, stages))
         proj = (aggregate_projection(head.get("frames_per_s"), stages)
                 if dev.type == "cuda" else None)
         if proj is not None:

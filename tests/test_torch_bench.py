@@ -174,6 +174,17 @@ TPU_ONLY = {
     "pipeline_1080p": {"note"},
     "encode_device": {"note"},
 }
+# Keys of a JAX row the port leaves out: the clean-hour probe rate of the
+# JAX bench's TPU host (no such rate is recorded for the port's hosts, so
+# "clean" is the probes' spread alone).
+DROPPED = {"parse": {"clean_probe_mblocks_baseline"}}
+# Keys main() adds to a row from the run's other rows (the JAX stage took
+# them as arguments): pipeline_1080p's projections, checked below.
+PROJECTION_KEYS = {"projected_frames_per_s_inprocess", "projection_inputs",
+                   "device_idle_fraction_projected", "projected_frames_per_s",
+                   "projected_frames_per_s_isolated_parse",
+                   "projection_isolated_inputs"}
+ADDED_BY_MAIN = {"pipeline_1080p": PROJECTION_KEYS}
 # Keys every row of the port carries.
 PORT_KEYS = ["device", "torch", "cuda", "cpu_count", "launches"]
 GEOMETRY_ROW = ["frames_per_s", "gpix_per_s", "rows_per_step",
@@ -193,17 +204,14 @@ def _rates(row, path=""):
 
 
 def _stage_row(stage):
-    kw = {}
-    if stage == "pipeline_1080p":
-        kw = dict(kernel_fps=100.0, kernel_fps_bm=120.0, parse_iso=50.0,
-                  parse_iso_cm=40.0)
-    return bench.run_stage(stage, CPU, small=True, **kw)
+    return bench.run_stage(stage, CPU, small=True)
 
 
 @pytest.mark.parametrize("stage", bench.STAGES)
 def test_stage_row_has_the_jax_keys_and_finite_rates(stage):
     row = _stage_row(stage)
-    want = set(JAX_KEYS[stage]) - TPU_ONLY.get(stage, set())
+    want = (set(JAX_KEYS[stage]) - TPU_ONLY.get(stage, set())
+            - DROPPED.get(stage, set()) - ADDED_BY_MAIN.get(stage, set()))
     assert want <= set(row), sorted(want - set(row))
     assert set(PORT_KEYS) <= set(row)
     assert row["device"] == ("host" if stage in bench.HOST_STAGES else "cpu")
@@ -219,6 +227,40 @@ def test_stage_row_has_the_jax_keys_and_finite_rates(stage):
     assert rates
     for name, v in rates:
         assert isinstance(v, float) and math.isfinite(v) and v > 0, (name, v)
+
+
+def test_pipeline_projection_is_min_of_parse_and_kernel():
+    row = {"parse_fps_bm": 70.0, "parse_fps_cm": 50.0}
+    paths = {"fused": {"frames_per_s": 60.0}, "cm": {"error": "x"}}
+    stages = {"parse": {"frames_per_s_balanced": 90.0,
+                        "cm_frames_per_s": 80.0}}
+    got = bench.pipeline_projection(row, paths, stages)
+    assert set(got) == PROJECTION_KEYS
+    # cm has no kernel rate (its path failed): only bm pairs.
+    assert got["projection_inputs"]["pairings"] == {"bm": 60.0}
+    assert got["projected_frames_per_s_inprocess"] == 60.0
+    assert got["projection_inputs"]["bound"] == "kernel"
+    assert got["projected_frames_per_s"] == 60.0
+    assert got["device_idle_fraction_projected"] == 0.0
+    # Without a parse stage there is no isolated projection.
+    assert "projected_frames_per_s" not in bench.pipeline_projection(
+        row, paths, {})
+
+
+def test_main_projects_pipeline_1080p_from_the_run(tmp_path):
+    rc, head, tree = _main(["--device", "cpu", "--paths", "fused,cm",
+                            "--stages", "parse,pipeline_1080p"], tmp_path)
+    assert rc == 0, tree["stages"]
+    row, paths = tree["stages"]["pipeline_1080p"], tree["paths"]
+    assert set(JAX_KEYS["pipeline_1080p"]) - TPU_ONLY["pipeline_1080p"] \
+        <= set(row)
+    pairs = row["projection_inputs"]["pairings"]
+    assert pairs["bm"] == round(min(row["parse_fps_bm"],
+                                    paths["fused"]["frames_per_s"]), 1)
+    assert pairs["cm"] == round(min(row["parse_fps_cm"],
+                                    paths["cm"]["frames_per_s"]), 1)
+    assert row["projected_frames_per_s_inprocess"] == max(pairs.values())
+    assert row["projected_frames_per_s"] > 0
 
 
 def test_sharded_reports_scaling_over_several_devices():
@@ -348,6 +390,9 @@ def test_bench_on_the_card(cuda, tmp_path):  # noqa: F811
         k = bench.PATH_KERNEL[name]
         assert all((v > 0) == (n == k) for n, v in row["launches"].items())
         assert row["power_limit"]
-    assert tree["kernel_quality"]["kernel_us_per_launch"] > 0
+    kq = tree["kernel_quality"]
+    assert kq["kernel_us_per_launch"] > 0
+    # One byte count a kernel: the bound's (tools/bounds.py).
+    assert kq["approx_bytes_per_batch"] == kernel_bound("k1", 8, 60 * 34)["bytes"]
     assert tree["stages"]["encode_transform"]["launches"]["K4"] > 0
     assert tree["stages"]["e2e"]["launches"]["K1"] > 0
