@@ -144,6 +144,24 @@ The port's bench has its own phase (bench_phases):
      must count launches of its own kernel and of no other ([bench] lines,
      a [bench-summary] JSON line of exit codes, error rows and launch
      counts; the four share the card, so it holds no rate).
+The port's soaks have their own phase (soak_phases), seeded from the clock
+with the seeds printed before the first round:
+  10. rounds of mjpeg423_tpu_torch/scripts/parity_soak.py on the card
+     (random clips of 1-7 x 1-9 blocks and 2-11 frames: noise, flat with
+     tiny motion, gradients with scene cuts, saturated extremes): every
+     encode path (K4 alone and on a 4x1 mesh, the candidate path) gives
+     the host encoder's bytes; every decode path (the pipeline in the three
+     layouts, live ingest, I-frames, packed clips, GOP-aligned and unaligned
+     sharded decodes, re-GOP) the NumPy decoder's frames, each pipeline one
+     decode-window launch a window, the GOP-aligned sharded decode the sum
+     over shards of ceil(frames / window) K1 and the unaligned one K5 a
+     cell; rounds of scripts/fuzz_native.py (the native parse against its
+     Python oracle under corruption, the resilient decode on the card);
+     then one parity round of 12 noise frames and one of 12 extreme frames
+     at 640x480, with the native entropy coder in the host-only checks.
+     The first failing round fails the phase.  Each of K1-K5 must launch
+     over the phase (soak_launches in the kernels line); a [soak-summary]
+     JSON line of seeds, rounds, walls and launches.
 "[clock]" lines give the seconds since the start after each group of phases.
 The encode path has its own phases beside these:
   3b. the fused encode-window kernel (FDCT + quantize) against its plain
@@ -1252,6 +1270,112 @@ def bench_phases(failures: list) -> dict:
     return summary
 
 
+SOAK_ROUNDS = 100  # parity_soak rounds on random edge geometries (phase 10)
+FUZZ_ROUNDS = 20  # fuzz_native rounds (phase 10)
+# Phase 10's rounds at the reference player's geometry: content classes of
+# parity_soak.content (0 noise, 3 extremes), 12 frames each.
+SOAK_LARGE = (("noise", 0), ("extremes", 3))
+SOAK_LARGE_GEOM = (480, 640, 12)
+
+
+def _port_script(name: str):
+    """mjpeg423_tpu_torch/scripts/<name>.py as a module (the folder is no
+    package: its scripts run as files)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "mjpeg423_tpu_torch", "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_soak_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def soak_phases(dev: torch.device, failures: list,
+                rounds: int = SOAK_ROUNDS, fuzz_rounds: int = FUZZ_ROUNDS,
+                large=SOAK_LARGE_GEOM) -> dict:
+    """Phase 10: the port's soaks on `dev`, seeded from the clock (the seeds
+    printed before the first round): rounds of parity_soak.one_round on
+    random edge geometries, fuzz_rounds of fuzz_native.one_round, then one
+    parity round of each SOAK_LARGE class at `large` (h, w, frames) with
+    the native entropy coder in the host-only checks.  The first failing
+    round fails the phase and ends it.  Every kernel's launches are counted
+    from 0 at the start and read at the end; on the card each of K1-K5 must
+    have launched.  Returns the seeds, the rounds run, the walls and the
+    launches by kernel."""
+    from mjpeg423_tpu_torch.ops import launch_counts, reset_counts
+
+    ps, fz = _port_script("parity_soak"), _port_script("fuzz_native")
+    base = time.time_ns() % (1 << 31)
+    seeds = {"parity": base, "fuzz": base + 1, "large": base + 2}
+    print(f"[soak] seeds {json.dumps(seeds)}; replay: python "
+          f"mjpeg423_tpu_torch/scripts/parity_soak.py {rounds} "
+          f"{seeds['parity']}, fuzz_native.py {fuzz_rounds} {seeds['fuzz']}",
+          flush=True)
+    mesh = ps.soak_mesh(dev)
+    oracle = ps.find_oracle()
+    done = {"parity": 0, "fuzz": 0, "large": 0}
+    walls = {}
+    reset_counts()
+    t_phase = time.perf_counter()
+
+    def run(kind: str, n: int, one) -> bool:
+        t0 = time.perf_counter()
+        try:
+            for r in range(n):
+                what = one(r)
+                done[kind] += 1
+                print(f"[soak] {kind} round {r}: {what} ok", flush=True)
+        except Exception as e:  # noqa: BLE001 -- the phase's FAIL
+            _check(failures, "soak", False,
+                   f"{kind} round {done[kind]} (seed {seeds[kind]}): "
+                   f"{type(e).__name__}: {e}")
+            return False
+        finally:
+            walls[kind] = round(time.perf_counter() - t0, 3)
+        return True
+
+    rng = np.random.default_rng(seeds["parity"])
+
+    def parity(_r):
+        rd = ps.one_round(rng, mesh, dev, oracle=oracle)
+        return f"{rd.w}x{rd.h} x{rd.nf} (blocks {rd.h // 8}x{rd.w // 8})"
+    ok = run("parity", rounds, parity)
+
+    frng = np.random.default_rng(seeds["fuzz"])
+    pipe = fz.resilient_pipeline(dev)
+
+    def fuzz(_r):
+        return fz.one_round(frng, pipe)[0]
+    ok = ok and run("fuzz", fuzz_rounds, fuzz)
+
+    lrng = np.random.default_rng(seeds["large"])
+    h, w, nf = large
+
+    def large_round(r):
+        name, kind = SOAK_LARGE[r]
+        clip = (ps.content(lrng, kind, h, w, nf), h, w, nf)
+        ps.one_round(lrng, mesh, dev, clip=clip, python_entropy=False)
+        return f"{name} {w}x{h} x{nf}"
+    ok = ok and run("large", len(SOAK_LARGE), large_round)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    wall = round(time.perf_counter() - t_phase, 3)
+    idle = [k for k in GROUP_COUNTS if launches[k] == 0]
+    if dev.type == "cuda":
+        _check(failures, "soak", not idle,
+               f"launches over the phase {json.dumps(launches)}; kernels "
+               f"that never launched {idle}")
+    out = {"seeds": seeds, "rounds": done, "walls_s": walls, "wall_s": wall,
+           "launches": launches}
+    print(f"[soak-summary] {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2124,6 +2248,10 @@ def main() -> int:
     bench_phases(failures)
     clock("9")
 
+    # ---- 10. the port's soaks on the card ------------------------------------
+    soak = soak_phases(dev, failures)
+    clock("10")
+
     loaded = [m for m in sys.modules
               if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib")
               and sys.modules[m] is not None]
@@ -2187,6 +2315,7 @@ def main() -> int:
     print(f"[shell-summary] {json.dumps(shell)}")
     print(f"[mesh-summary] {json.dumps(mesh)}")
     print(f"[entry-summary] {json.dumps(group8)}")
+    print(f"[soak-summary] {json.dumps(soak)}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_window_fused",
@@ -2208,6 +2337,7 @@ def main() -> int:
         "shell_launches": shell["launches"]["K1"],
         "mesh_launches": mesh["launches"]["K1"],
         "entry_launches": group8["launches"]["K1"],
+        "soak_launches": soak["launches"]["K1"],
     }, {
         "name": "encode_window_fused",
         "route": "cuda",
@@ -2221,6 +2351,7 @@ def main() -> int:
         "shell_launches": shell["launches"]["K4"],
         "mesh_launches": mesh["launches"]["K4"],
         "entry_launches": group8["launches"]["K4"],
+        "soak_launches": soak["launches"]["K4"],
     }, {
         "name": "decode_window_fused_cm",
         "route": "cuda",
@@ -2238,6 +2369,7 @@ def main() -> int:
         "shell_launches": shell["launches"]["K2"],
         "mesh_launches": mesh["launches"]["K2"],
         "entry_launches": group8["launches"]["K2"],
+        "soak_launches": soak["launches"]["K2"],
     }, {
         "name": "decode_window_fused_i8",
         "route": "cuda",
@@ -2254,6 +2386,7 @@ def main() -> int:
         "shell_launches": shell["launches"]["K3"],
         "mesh_launches": mesh["launches"]["K3"],
         "entry_launches": group8["launches"]["K3"],
+        "soak_launches": soak["launches"]["K3"],
     }, {
         "name": "transform_coefmajor",
         "route": "cuda",
@@ -2265,6 +2398,7 @@ def main() -> int:
         "shape": f"N={W * nb_hd} ({W} frames of 1920x1088)",
         "mesh_launches": mesh["launches"]["K5"],
         "entry_launches": group8["launches"]["K5"],
+        "soak_launches": soak["launches"]["K5"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

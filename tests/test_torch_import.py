@@ -235,6 +235,18 @@ SCRIPTS = {
             meta = json.loads(out.getvalue())
             assert meta["num_frames"] == 7 and meta["verify"] == "OK"
     """,
+    "soaks": """
+        import importlib.util
+        def run(name):
+            spec = importlib.util.spec_from_file_location(
+                name, f"mjpeg423_tpu_torch/scripts/{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[name] = mod
+            spec.loader.exec_module(mod)
+            assert mod.main(["1", "5", "--device", "cpu"]) == 0
+        run("parity_soak")
+        run("fuzz_native")
+    """,
 }
 
 
