@@ -162,6 +162,25 @@ with the seeds printed before the first round:
      The first failing round fails the phase.  Each of K1-K5 must launch
      over the phase (soak_launches in the kernels line); a [soak-summary]
      JSON line of seeds, rounds, walls and launches.
+The native codec's soaks have their own phase (native_phases), seeded from
+the clock with the seed printed before the first trial; no kernel runs in it:
+  11. builds of the port's native/centropy.c: the library the port loads,
+     with its ladder rung (native/centropy.py), and the ladder's base flags
+     plus -march=native, without and with -fopenmp, compiled beside it; a
+     build the host's compiler refuses is printed by name and skipped,
+     which fails nothing.  11a: 300 trials of
+     mjpeg423_tpu_torch/scripts/lanes_sweep.py through every build made
+     (batch decode against the scalar plane decoder under corruption, the
+     int8 lanes against MJ_I8_NO_LANES); 11b: the sanitizer harness
+     (sanitize_native.c, built by sanitize_native.py beside it) under the
+     strongest sanitizer set that links, on each program flag set that
+     builds; 11c: decode_batch
+     frames/s of each build on one 1920x1088 window of the bench's
+     make_amps content (16 frames, three planes, block-major), the median
+     of 5 with min and max, after a byte check against the scalar decoder.
+     Any mismatch or sanitizer report fails the phase; a [native-builds]
+     JSON line holds each build's flags, lanes and rate beside the host's
+     CPU model and the card's name and power limit.
 "[clock]" lines give the seconds since the start after each group of phases.
 The encode path has its own phases beside these:
   3b. the fused encode-window kernel (FDCT + quantize) against its plain
@@ -1376,6 +1395,143 @@ def soak_phases(dev: torch.device, failures: list,
     return out
 
 
+LANES_TRIALS = 300  # lanes_sweep trials over every build (phase 11a)
+SAN_TRIALS = 60  # sanitize_native trials on each flag set (phase 11b)
+# Phase 11c: one window of the bench's parse stage, (h, w, frames).
+NATIVE_RATE_GEOM = (1088, 1920, 16)
+NATIVE_RATE_REPS = 5
+
+
+def host_cpu() -> str:
+    """The host CPU's model name, vendor, family and model as lscpu gives
+    them (a virtual machine may report the name as "unknown")."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return "not reported (no lscpu)"
+    fields = dict(ln.split(":", 1) for ln in out.splitlines() if ":" in ln)
+    fields = {k.strip(): v.strip() for k, v in fields.items()}
+    return (f"{fields.get('Model name', '?')} ({fields.get('Vendor ID', '?')}"
+            f", family {fields.get('CPU family', '?')}, model "
+            f"{fields.get('Model', '?')})")
+
+
+def native_rates(builds, geom, reps: int, failures: list) -> dict:
+    """decode_batch frames/s of each build made on one window of the
+    bench's make_amps content (P-frames, as the bench's parse stage): the
+    output first checked byte for byte against the scalar plane decoder,
+    then `reps` timed calls of each build in turn into one reused buffer;
+    by build: median, min and max."""
+    from mjpeg423_tpu_torch.bench import make_amps
+    from mjpeg423_tpu_torch.native import centropy
+
+    h, w, f = geom
+    b = (h // 8) * (w // 8)
+    amps, _ = make_amps(np.random.default_rng(423), f, b)
+    blobs = [centropy.encode_plane(amps[p, fi])
+             for p in range(3) for fi in range(f)]
+    data = b"".join(blobs)
+    lens = np.array([len(x) for x in blobs], np.uint64)
+    offs = np.zeros(len(blobs), np.uint64)
+    offs[1:] = np.cumsum(lens)[:-1]
+    is_p = np.ones(len(blobs), np.uint8)
+    want = np.stack([centropy.decode_plane(x, b, True) for x in blobs])
+    dest = centropy.alloc_hugepage_buf((len(blobs), b, 64), np.int16)
+    made = [x for x in builds if x.module is not None]
+    times = {x.name: [] for x in made}
+    for x in made:
+        dest[:] = 0
+        x.module.decode_batch(data, offs, lens, is_p, b, out=dest)
+        _check(failures, "native", np.array_equal(dest, want),
+               f"11c {x.name}: decode_batch of {len(blobs)} planes of {b} "
+               f"blocks byte-equal to decode_plane")
+    for _ in range(reps):  # builds in turn, so that drift hits them alike
+        for x in made:
+            t0 = time.perf_counter()
+            x.module.decode_batch(data, offs, lens, is_p, b, out=dest)
+            times[x.name].append(time.perf_counter() - t0)
+    return {name: {"frames_per_s": f / statistics.median(t),
+                   "frames_per_s_min": f / max(t),
+                   "frames_per_s_max": f / min(t)}
+            for name, t in times.items()}
+
+
+def native_phases(failures: list, card: str, trials: int = LANES_TRIALS,
+                  san_trials: int = SAN_TRIALS, rate_geom=NATIVE_RATE_GEOM,
+                  reps: int = NATIVE_RATE_REPS) -> dict:
+    """Phase 11: every build of the port's native/centropy.c that the
+    host's compiler makes (lanes_sweep.make_builds), swept by lanes_sweep
+    (11a, `trials` trials), soaked by the sanitizer harness (11b,
+    `san_trials`), and timed (11c, native_rates at rate_geom).  One seed
+    from the clock, printed first, serves 11a and 11b.  A build that cannot
+    be made fails nothing; a mismatch or a sanitizer report fails the
+    phase.  Prints and returns the [native-builds] record; `card` is the
+    card's name and power limit as nvidia-smi gives them."""
+    import os
+    import pathlib
+    import tempfile
+
+    ls, sn = _port_script("lanes_sweep"), _port_script("sanitize_native")
+    seed = time.time_ns() % (1 << 31)
+    print(f"[native] seed {seed}; replay: python "
+          f"mjpeg423_tpu_torch/scripts/lanes_sweep.py {trials} {seed}; "
+          f"python mjpeg423_tpu_torch/scripts/sanitize_native.py "
+          f"{san_trials} {seed}", flush=True)
+    ls.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="native-",
+                                     dir=ls.BUILD_ROOT) as td:
+        t0 = time.perf_counter()
+        builds = ls.make_builds(ls.BUILD_NAMES, pathlib.Path(td))
+        walls["build"] = round(time.perf_counter() - t0, 3)
+        for x in builds:
+            print(f"[native] {ls.describe(x)}", flush=True)
+        made = [x.name for x in builds if x.module is not None]
+
+        t0 = time.perf_counter()
+        counts = {}
+        try:
+            counts = ls.sweep(builds, trials, seed, log=lambda _s: None)
+            _check(failures, "native", bool(made),
+                   f"11a lanes_sweep: {trials} trials, seed {seed}, clean "
+                   f"over {made}")
+        except AssertionError as e:
+            _check(failures, "native", False,
+                   f"11a lanes_sweep seed {seed}: {e}")
+        walls["sweep"] = round(time.perf_counter() - t0, 3)
+
+        t0 = time.perf_counter()
+        san_dir = pathlib.Path(td) / "sanitize"
+        san_dir.mkdir()
+        san = sn.soak(san_trials, seed, san_dir)
+        _check(failures, "native", not san["failed"],
+               f"11b sanitize_native: sanitizer {san['sanitizer']}, "
+               f"{san_trials} trials, clean {san['clean']}, failed "
+               f"{san['failed']}, not built {sorted(san['not_built'])}")
+        walls["sanitize"] = round(time.perf_counter() - t0, 3)
+
+        t0 = time.perf_counter()
+        rates = native_rates(builds, rate_geom, reps, failures)
+        walls["rate"] = round(time.perf_counter() - t0, 3)
+    h, w, f = rate_geom
+    out = {
+        "host_cpu": host_cpu(), "cpu_count": os.cpu_count(), "card": card,
+        "rate_content": f"bench make_amps rng 423, {w}x{h}, {f} frames x 3 "
+                        f"planes, block-major, P, median of {reps}",
+        "seed": seed, "trials": trials, "sanitize_trials": san_trials,
+        "builds": [{
+            "name": x.name, "flags": " ".join(x.flags), "lanes": x.lanes,
+            "built": x.module is not None, "note": x.note,
+            "sweep": dict(counts.get(x.name, {})),
+            **rates.get(x.name, {}),
+        } for x in builds],
+        "sanitize": san, "walls_s": walls,
+    }
+    print(f"[native-builds] {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2252,6 +2408,10 @@ def main() -> int:
     soak = soak_phases(dev, failures)
     clock("10")
 
+    # ---- 11. the native codec's builds: sweep, sanitizers, rates -----------
+    native = native_phases(failures, smi)
+    clock("11")
+
     loaded = [m for m in sys.modules
               if m.split(".")[0] in (JAX_PACKAGE, "jax", "jaxlib")
               and sys.modules[m] is not None]
@@ -2316,6 +2476,7 @@ def main() -> int:
     print(f"[mesh-summary] {json.dumps(mesh)}")
     print(f"[entry-summary] {json.dumps(group8)}")
     print(f"[soak-summary] {json.dumps(soak)}")
+    print(f"[native-builds] {json.dumps(native)}")
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "decode_window_fused",

@@ -247,6 +247,24 @@ SCRIPTS = {
         run("parity_soak")
         run("fuzz_native")
     """,
+    "native_scripts": """
+        import importlib.util, pathlib, tempfile
+        def load(name):
+            spec = importlib.util.spec_from_file_location(
+                name, f"mjpeg423_tpu_torch/scripts/{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[name] = mod
+            spec.loader.exec_module(mod)
+            return mod
+        sweep = load("lanes_sweep")
+        assert sweep.main(["2", "3", "--builds", "loaded"]) == 0
+        san = load("sanitize_native")
+        from mjpeg423_tpu_torch.native import centropy
+        with tempfile.TemporaryDirectory() as d:
+            picked, _ = san.pick_sanitizer(centropy._compiler(),
+                                           pathlib.Path(d))
+            assert picked is not None
+    """,
 }
 
 
