@@ -165,22 +165,31 @@ with the seeds printed before the first round:
 The native codec's soaks have their own phase (native_phases), seeded from
 the clock with the seed printed before the first trial; no kernel runs in it:
   11. builds of the port's native/centropy.c: the library the port loads,
-     with its ladder rung (native/centropy.py), and the ladder's base flags
-     plus -march=native, without and with -fopenmp, compiled beside it; a
-     build the host's compiler refuses is printed by name and skipped,
-     which fails nothing.  11a: 300 trials of
-     mjpeg423_tpu_torch/scripts/lanes_sweep.py through every build made
-     (batch decode against the scalar plane decoder under corruption, the
-     int8 lanes against MJ_I8_NO_LANES); 11b: the sanitizer harness
-     (sanitize_native.c, built by sanitize_native.py beside it) under the
-     strongest sanitizer set that links, on each program flag set that
-     builds; 11c: decode_batch
-     frames/s of each build on one 1920x1088 window of the bench's
-     make_amps content (16 frames, three planes, block-major), the median
-     of 5 with min and max, after a byte check against the scalar decoder.
-     Any mismatch or sanitizer report fails the phase; a [native-builds]
-     JSON line holds each build's flags, lanes and rate beside the host's
-     CPU model and the card's name and power limit.
+     its centropy.build_info() on a [native-build] line (ladder rung,
+     flags, lanes, OpenMP and threads), and every rung of the ladder
+     compiled beside it; a rung the host's compiler refuses is printed by
+     name and skipped, which fails nothing.  The phase fails where the
+     loaded build lacks -march=native while the ladder's -march=native rung
+     builds here, or runs one thread on a host of more than one core.  11a:
+     300 trials of mjpeg423_tpu_torch/scripts/lanes_sweep.py through every
+     build made (batch decode against the scalar plane decoder under
+     corruption, the int8 lanes against MJ_I8_NO_LANES; on a build without
+     OpenMP through the wrappers' threaded split); 11b: the sanitizer
+     harness (sanitize_native.c, built by sanitize_native.py beside it)
+     under the strongest sanitizer set that links, on each program flag
+     set that builds; 11c: decode_batch frames/s of each build on one
+     1920x1088 window of the bench's make_amps content (16 frames, three
+     planes, block-major), the median of 5 with min and max, after a byte
+     check against the scalar decoder; then the plain rung on one thread
+     (what the port loaded on this host before the ladder knew its
+     compiler) against the loaded build in alternating pairs on
+     decode_batch, blocked_to_raster and candidate_sizes, outputs
+     byte-equal ([native-pairs]), and the loaded build's decode_batch with
+     1, 2 and 4 windows in flight at once, as the pipeline's parse
+     look-ahead runs them ([native-inflight]).  Any mismatch or sanitizer
+     report fails the phase; a [native-builds] JSON line holds each
+     build's flags, lanes and rate beside the host's CPU model and the
+     card's name and power limit.
 "[clock]" lines give the seconds since the start after each group of phases.
 The encode path has its own phases beside these:
   3b. the fused encode-window kernel (FDCT + quantize) against its plain
@@ -1457,6 +1466,114 @@ def native_rates(builds, geom, reps: int, failures: list) -> dict:
             for name, t in times.items()}
 
 
+def _spread(times: list, frames: int) -> dict:
+    return {"frames_per_s": frames / statistics.median(times),
+            "frames_per_s_min": frames / max(times),
+            "frames_per_s_max": frames / min(times)}
+
+
+def native_pairs(old, new, geom, reps: int, failures: list) -> dict:
+    """`old` (a centropy module) against `new` in alternating pairs (old,
+    new, new, old, ...) on decode_batch of one window of the bench's
+    make_amps content, blocked_to_raster of a window of its frames
+    (row fold 1) and candidate_sizes of each of its frames; each output
+    first checked equal between the two.  By function: each side's
+    frames/s (median, min, max of `reps` pairs) and the pairs `new` won."""
+    from mjpeg423_tpu_torch.bench import make_amps
+
+    h, w, f = geom
+    bh, bw = h // 8, w // 8
+    b = bh * bw
+    amps, _ = make_amps(np.random.default_rng(423), f, b)
+    blobs = [new.encode_plane(amps[p, fi]) for p in range(3) for fi in range(f)]
+    data = b"".join(blobs)
+    lens = np.array([len(x) for x in blobs], np.uint64)
+    offs = np.zeros(len(blobs), np.uint64)
+    offs[1:] = np.cumsum(lens)[:-1]
+    is_p = np.ones(len(blobs), np.uint8)
+    dest = new.alloc_hugepage_buf((len(blobs), b, 64), np.int16)
+    blocked = np.random.default_rng(424).integers(
+        0, 2 ** 32, (f, 8, bh, 8, bw), dtype=np.uint32)
+    q = np.ascontiguousarray(amps.transpose(1, 0, 2, 3))  # (f, 3, b, 64)
+
+    calls = {
+        "decode_batch": lambda m: m.decode_batch(data, offs, lens, is_p, b,
+                                                 out=dest),
+        "blocked_to_raster": lambda m: m.blocked_to_raster(blocked, bh, bw),
+        "candidate_sizes": lambda m: [m.candidate_sizes(q[i], q[i - 1] if i
+                                                        else None)
+                                      for i in range(f)],
+    }
+    out = {}
+    for name, call in calls.items():
+        a = call(old)
+        a = a.copy() if isinstance(a, np.ndarray) else a  # dest is reused
+        c = call(new)
+        same = (np.array_equal(a, c) if isinstance(a, np.ndarray)
+                else a == c)
+        _check(failures, "native", same,
+               f"11c {name}: the loaded build equals the plain rung on one "
+               "thread")
+        times = {"old": [], "new": []}
+        for r in range(reps):
+            for side in (("old", "new") if r % 2 == 0 else ("new", "old")):
+                t0 = time.perf_counter()
+                call(old if side == "old" else new)
+                times[side].append(time.perf_counter() - t0)
+        out[name] = {side: _spread(t, f) for side, t in times.items()}
+        out[name]["pairs_won_by_loaded"] = sum(
+            n < o for o, n in zip(times["old"], times["new"]))
+    return out
+
+
+def native_inflight(mod, geom, reps: int) -> dict:
+    """decode_batch of 4 windows of the bench's make_amps content with 1, 2
+    and 4 of them in flight at once on as many threads (the pipeline's
+    parse look-ahead keeps up to prefetch_batches + 2 = 4 in flight), in
+    turn `reps` times: frames/s by count in flight (median, min, max).  A
+    build whose batch loop is threaded (OpenMP or the wrappers' pool)
+    shows here whether the windows' threads crowd each other out."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mjpeg423_tpu_torch.bench import make_amps
+
+    h, w, f = geom
+    b = (h // 8) * (w // 8)
+    amps, _ = make_amps(np.random.default_rng(425), f, b)
+    blobs = [mod.encode_plane(amps[p, fi]) for p in range(3) for fi in range(f)]
+    data = b"".join(blobs)
+    lens = np.array([len(x) for x in blobs], np.uint64)
+    offs = np.zeros(len(blobs), np.uint64)
+    offs[1:] = np.cumsum(lens)[:-1]
+    is_p = np.ones(len(blobs), np.uint8)
+    dests = [mod.alloc_hugepage_buf((len(blobs), b, 64), np.int16)
+             for _ in range(4)]
+    times = {1: [], 2: [], 4: []}
+    for _ in range(reps):
+        for k in times:
+            with ThreadPoolExecutor(k) as ex:
+                t0 = time.perf_counter()
+                list(ex.map(lambda d: mod.decode_batch(
+                    data, offs, lens, is_p, b, out=d), dests))
+                times[k].append(time.perf_counter() - t0)
+    return {str(k): _spread(t, 4 * f) for k, t in times.items()}
+
+
+def check_native_build(failures: list, info: dict, made: list,
+                       cores: int) -> None:
+    """No quiet fall back: the loaded build (centropy.build_info()) fails
+    the phase where it lacks -march=native while the ladder's native rung
+    builds on this host (`made`: the builds lanes_sweep made), or where its
+    loops run one thread on a host of more than one core."""
+    _check(failures, "native", "-march=native" in info["flags"]
+           or "native" not in made,
+           f"11: the loaded build ({info['rung']}) has -march=native where "
+           f"the ladder's native rung builds here ({'native' in made})")
+    _check(failures, "native", info["threads"] > 1 or cores == 1,
+           f"11: the loaded build runs {info['threads']} threads "
+           f"({info['threads_from']}) on {cores} cores")
+
+
 def native_phases(failures: list, card: str, trials: int = LANES_TRIALS,
                   san_trials: int = SAN_TRIALS, rate_geom=NATIVE_RATE_GEOM,
                   reps: int = NATIVE_RATE_REPS) -> dict:
@@ -1472,7 +1589,11 @@ def native_phases(failures: list, card: str, trials: int = LANES_TRIALS,
     import pathlib
     import tempfile
 
+    from mjpeg423_tpu_torch.native import centropy
+
     ls, sn = _port_script("lanes_sweep"), _port_script("sanitize_native")
+    info = centropy.build_info()
+    print(f"[native-build] {json.dumps(info)}", flush=True)
     seed = time.time_ns() % (1 << 31)
     print(f"[native] seed {seed}; replay: python "
           f"mjpeg423_tpu_torch/scripts/lanes_sweep.py {trials} {seed}; "
@@ -1488,6 +1609,8 @@ def native_phases(failures: list, card: str, trials: int = LANES_TRIALS,
         for x in builds:
             print(f"[native] {ls.describe(x)}", flush=True)
         made = [x.name for x in builds if x.module is not None]
+        check_native_build(failures, info, made,
+                           len(os.sched_getaffinity(0)))
 
         t0 = time.perf_counter()
         counts = {}
@@ -1514,12 +1637,25 @@ def native_phases(failures: list, card: str, trials: int = LANES_TRIALS,
         t0 = time.perf_counter()
         rates = native_rates(builds, rate_geom, reps, failures)
         walls["rate"] = round(time.perf_counter() - t0, 3)
+
+        t0 = time.perf_counter()
+        pairs, inflight = {}, {}
+        plain = next(x for x in builds if x.name == "plain")
+        if plain.module is not None and info["rung"] is not None:
+            old = ls.bind(pathlib.Path(td) / "libcentropy_plain.so",
+                          "plain-1", plain.info, threads=1)
+            pairs = native_pairs(old, centropy, rate_geom, reps, failures)
+            print(f"[native-pairs] {json.dumps(pairs)}", flush=True)
+            inflight = native_inflight(centropy, rate_geom, reps)
+            print(f"[native-inflight] {json.dumps(inflight)}", flush=True)
+        walls["pairs"] = round(time.perf_counter() - t0, 3)
     h, w, f = rate_geom
     out = {
         "host_cpu": host_cpu(), "cpu_count": os.cpu_count(), "card": card,
         "rate_content": f"bench make_amps rng 423, {w}x{h}, {f} frames x 3 "
                         f"planes, block-major, P, median of {reps}",
         "seed": seed, "trials": trials, "sanitize_trials": san_trials,
+        "loaded": info, "pairs": pairs, "inflight": inflight,
         "builds": [{
             "name": x.name, "flags": " ".join(x.flags), "lanes": x.lanes,
             "built": x.module is not None, "note": x.note,

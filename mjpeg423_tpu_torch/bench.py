@@ -36,8 +36,10 @@ differs is an error row and the run exits 1; no other path stands in for
 it.  Every rep counts (median, min, max).  Every row names its device (the
 card's name and power limit, or "cpu", or "host" for host stages), the
 torch and CUDA versions, os.cpu_count() and the kernels' launches during
-its timed calls.  The full tree goes to --out only; the headline JSON line
-is printed last.
+its timed calls; the run's environment also holds the host codec's
+native_build (native/centropy.build_info(): ladder rung, flags, lanes,
+OpenMP and threads).  The full tree goes to --out only; the headline JSON
+line is printed last.
 """
 from __future__ import annotations
 
@@ -1470,7 +1472,9 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     failed = False
-    env = environment(dev)
+    # The host codec's build sets every host stage's rate: its ladder rung,
+    # lanes and threads stand beside the card and its power limit.
+    env = {**environment(dev), "native_build": centropy.build_info()}
     _log(f"bench: {env}")
     if dev.type == "cuda":
         _build.load()  # the stage processes load what this one built

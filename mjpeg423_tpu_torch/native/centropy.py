@@ -1,10 +1,18 @@
-"""Copied from mjpeg423_tpu/native/centropy.py at commit bfc8537.
+"""Copied from mjpeg423_tpu/native/centropy.py at commit bfc8537; the build
+ladder and the threading of the wrappers are the port's own.
 
 ctypes bindings for the native entropy codec (centropy.c).
 
 Builds the shared library on demand with the system C compiler (cached by
 source mtime); falls back to the pure-Python oracle implementation when no
 compiler is available so the framework always works.
+
+The ladder (RUNGS) is tried in order and the first rung that builds is
+loaded; build_info() says which.  A compiler whose -fopenmp compiles but
+does not link (its libgomp.spec missing) gets OpenMP by linking the object
+against the system's libgomp.so.1 by path.  On a build without OpenMP the
+wrappers whose C loop runs over independent items split the items over one
+thread pool of this module (ctypes releases the GIL during each call).
 """
 from __future__ import annotations
 
@@ -14,7 +22,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple, Sequence
 
 import numpy as np
 
@@ -25,7 +34,38 @@ _SRC = _HERE / "centropy.c"
 _BUILD = _HERE / "_build"
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_INFO: dict = {}
 _TRIED = False
+
+# -ffp-contract=off: the color-convert doubles must round mul/add
+# separately (no FMA contraction) to stay bit-exact with the NumPy oracle
+# and the reference's strict-IEEE expressions.
+BASE_FLAGS = ("-O3", "-std=c11", "-fwrapv", "-ffp-contract=off", "-fPIC",
+              "-shared")
+# centropy.c compiles its 8-lane batch decoder (MJ_HAVE_LANES8) under these.
+LANES_MACROS = ("__AVX512F__", "__AVX512BW__", "__AVX512VBMI__")
+
+
+class Rung(NamedTuple):
+    """One rung of the build ladder: the flags it adds to BASE_FLAGS; with
+    link_gomp, centropy.c is compiled to an object with them and linked
+    against the libgomp.so.1 the compiler names, by path."""
+
+    name: str
+    flags: tuple
+    link_gomp: bool = False
+
+
+# Build ladder, tried in order.  -march=native is safe here because the
+# library is always compiled on the machine that runs it (on-demand build,
+# stamped with the host CPU); OpenMP parallelizes the batch loops.
+RUNGS = (
+    Rung("native-openmp", ("-march=native", "-fopenmp")),
+    Rung("native-openmp-libgomp", ("-march=native", "-fopenmp"), True),
+    Rung("native", ("-march=native",)),
+    Rung("openmp", ("-fopenmp",)),
+    Rung("plain", ()),
+)
 
 
 def _cpu_fingerprint() -> str:
@@ -56,7 +96,64 @@ def _compiler() -> str | None:
     return None
 
 
-def _build() -> pathlib.Path | None:
+def _system_libgomp(cc: str) -> str | None:
+    """The libgomp.so.1 that `cc` links, by path; None where it names none
+    (gcc prints the bare name back when the file is not on its path)."""
+    try:
+        out = subprocess.run([cc, "-print-file-name=libgomp.so.1"],
+                             capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    path = out.stdout.strip()
+    if not (os.path.isabs(path) and os.path.exists(path)):
+        return None
+    return os.path.normpath(path)
+
+
+def lanes_compiled(cc: str, flags) -> bool:
+    """Whether `flags` give centropy.c its 8-lane decoder on this host."""
+    res = subprocess.run([cc, *flags, "-dM", "-E", "-x", "c", os.devnull],
+                         capture_output=True, text=True)
+    defined = {ln.split()[1] for ln in res.stdout.splitlines()
+               if ln.startswith("#define ")}
+    return res.returncode == 0 and all(m in defined for m in LANES_MACROS)
+
+
+def compile_rung(cc: str, rung: Rung, so: pathlib.Path) -> dict:
+    """Build centropy.c into `so` as `rung` builds it.  Raises
+    subprocess.CalledProcessError (stderr bytes) where the compiler refuses;
+    returns the build's record: the rung, its compile flags, the libgomp
+    linked by path, whether the lanes are compiled in and whether it has
+    OpenMP."""
+    flags = BASE_FLAGS + rung.flags
+    gomp = None
+    if not rung.link_gomp:
+        subprocess.run([cc, *flags, "-o", str(so), str(_SRC)], check=True,
+                       capture_output=True)
+    else:
+        gomp = _system_libgomp(cc)
+        if gomp is None:
+            raise subprocess.CalledProcessError(
+                1, cc, stderr=f"{cc} names no libgomp.so.1 "
+                              "(-print-file-name)".encode())
+        obj = so.with_name(so.name.replace(".so", ".o"))
+        try:
+            subprocess.run([cc, *flags, "-c", "-o", str(obj), str(_SRC)],
+                           check=True, capture_output=True)
+            subprocess.run([cc, "-shared", "-o", str(so), str(obj), gomp],
+                           check=True, capture_output=True)
+        finally:
+            obj.unlink(missing_ok=True)
+    return {"rung": rung.name, "compiler": cc, "flags": list(flags),
+            "libgomp": gomp, "lanes": lanes_compiled(cc, flags),
+            "openmp": "-fopenmp" in rung.flags}
+
+
+def _build() -> tuple[pathlib.Path, dict] | None:
+    """(the library, its build record), built now or found cached; None
+    where no compiler builds it."""
+    import json
+
     cc = _compiler()
     if cc is None:
         return None
@@ -65,9 +162,17 @@ def _build() -> pathlib.Path | None:
     # The stamp includes a host-CPU fingerprint: -march=native binaries in
     # a checkout shared across heterogeneous machines (NFS home) must not
     # be reused on a CPU lacking the build host's ISA extensions (SIGILL).
-    want = f"{_SRC.stat().st_mtime}:{cc}:v3-fp-contract-off:{_cpu_fingerprint()}"
-    if so.exists() and stamp.exists() and stamp.read_text() == want:
-        return so
+    # "ladder-v4": a library an older ladder built is built again.  The
+    # stamp's second line is the build record.
+    want = (f"{_SRC.stat().st_mtime}:{cc}:v3-fp-contract-off:ladder-v4:"
+            f"{_cpu_fingerprint()}")
+    if so.exists() and stamp.exists():
+        head, _, record = stamp.read_text().partition("\n")
+        if head == want:
+            try:
+                return so, json.loads(record)
+            except ValueError:
+                pass  # a stamp without its record: build again
     _BUILD.mkdir(exist_ok=True)
     # Build into a per-process temp name and os.replace() it into place:
     # two processes compiling concurrently (a test run racing a bench
@@ -78,7 +183,8 @@ def _build() -> pathlib.Path | None:
     # Sweep temp files stranded by crashed builds (a process that died
     # between compile and os.replace leaves its pid-named temp behind;
     # any pid-suffixed temp whose owner is gone is garbage).
-    for stale in _BUILD.glob("libcentropy.so.tmp.*"):
+    for stale in [*_BUILD.glob("libcentropy.so.tmp.*"),
+                  *_BUILD.glob("libcentropy.o.tmp.*")]:
         try:
             pid = int(stale.suffix.lstrip("."))
             os.kill(pid, 0)  # raises if no such process
@@ -86,65 +192,52 @@ def _build() -> pathlib.Path | None:
             stale.unlink(missing_ok=True)
         except PermissionError:
             pass  # pid exists under another user: leave it
-    # -ffp-contract=off: the color-convert doubles must round mul/add
-    # separately (no FMA contraction) to stay bit-exact with the NumPy
-    # oracle and the reference's strict-IEEE expressions.
-    base = [cc, "-O3", "-std=c11", "-fwrapv", "-ffp-contract=off", "-fPIC",
-            "-shared", "-o", str(so_tmp), str(_SRC)]
-    # Build ladder: native ISA + OpenMP -> OpenMP -> plain.  -march=native
-    # is safe here because the library is always compiled on the machine
-    # that runs it (on-demand build); OpenMP parallelizes the batch decode
-    # across frame-plane items.
-    attempts = (
-        base + ["-march=native", "-fopenmp"],
-        base + ["-fopenmp"],
-        base,
-    )
     first_err = None
     try:
-        for rung, cmd in enumerate(attempts):
+        for index, rung in enumerate(RUNGS):
             try:
-                subprocess.run(cmd, check=True, capture_output=True)
-                if rung > 0:
-                    # A degraded rung is legitimate on hosts lacking the
-                    # ISA, but a SOURCE error in the native rung must not
-                    # silently cost the SIMD decode path (it did once: a
-                    # macro bug made the ladder quietly drop -march=native
-                    # and the batch parse ran 1.5x slower while every test
-                    # stayed green).
-                    import warnings
-
-                    tail = (first_err or b"").decode(errors="replace")[-400:]
-                    warnings.warn(
-                        f"centropy: native-ISA build rung failed; using rung "
-                        f"{rung} ({'openmp' if rung == 1 else 'plain'}). "
-                        f"First rung stderr tail: {tail}",
-                        RuntimeWarning,
-                        stacklevel=2,
-                    )
-                break
+                info = compile_rung(cc, rung, so_tmp)
             except subprocess.CalledProcessError as e:
                 if first_err is None:
                     first_err = e.stderr or b""
                 continue
+            if not (info["openmp"] and "-march=native" in info["flags"]):
+                # A degraded rung is legitimate on hosts lacking the ISA or
+                # OpenMP, but a SOURCE error in the first rung must not
+                # silently cost the SIMD decode path (it did once: a macro
+                # bug made the ladder quietly drop -march=native and the
+                # batch parse ran 1.5x slower while every test stayed
+                # green).
+                import warnings
+
+                tail = (first_err or b"").decode(errors="replace")[-400:]
+                warnings.warn(
+                    f"centropy: built rung {index} ({rung.name}), without "
+                    f"{'OpenMP' if not info['openmp'] else '-march=native'}"
+                    f". First rung stderr tail: {tail}",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+            break
         else:
             return None
         os.replace(so_tmp, so)
     finally:
         so_tmp.unlink(missing_ok=True)  # no-op after a successful replace
-    stamp.write_text(want)
-    return so
+    stamp.write_text(f"{want}\n{json.dumps(info)}")
+    return so, info
 
 
 def _load() -> ctypes.CDLL | None:
-    global _LIB, _TRIED
+    global _LIB, _INFO, _TRIED
     with _LOCK:
         if _TRIED:
             return _LIB
         _TRIED = True
-        so = _build()
-        if so is None:
+        built = _build()
+        if built is None:
             return None
+        so, _INFO = built
         lib = ctypes.CDLL(str(so))
         lib.mj423_decode_plane.restype = ctypes.c_int
         lib.mj423_decode_plane.argtypes = [
@@ -247,6 +340,91 @@ def _load() -> ctypes.CDLL | None:
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def build_info() -> dict:
+    """The loaded library's build: its ladder rung (None: no compiler, the
+    wrappers run the Python oracle), compiler, compile flags, the libgomp
+    linked by path, whether the 8-lane decoder is compiled in (`lanes`)
+    and whether it has OpenMP; `threads` is what its parallel loops get:
+    omp_get_max_threads() through the library where OpenMP is linked,
+    else the size of the wrappers' pool (`threads_from`)."""
+    lib = _load()
+    if lib is None:
+        return {"rung": None, "compiler": None, "flags": [],
+                "libgomp": None, "lanes": False, "openmp": False,
+                "threads": 1, "threads_from": "python"}
+    if _INFO["openmp"]:
+        get = lib.omp_get_max_threads
+        get.restype, get.argtypes = ctypes.c_int, []
+        return {**_INFO, "threads": int(get()), "threads_from": "openmp"}
+    return {**_INFO, "threads": _pool_threads(), "threads_from": "pool"}
+
+
+# The wrappers' pool, for builds without OpenMP: made on first use.
+_POOL: ThreadPoolExecutor | None = None
+_POOL_SIZE = 0
+
+
+def _pool_threads() -> int:
+    """The pool's size: OMP_NUM_THREADS where it is set (its first entry),
+    else the cores this process may run on; fixed at the first use."""
+    global _POOL_SIZE
+    if not _POOL_SIZE:
+        try:
+            n = int(os.environ.get("OMP_NUM_THREADS", "").split(",")[0])
+        except ValueError:
+            n = 0
+        _POOL_SIZE = n if n > 0 else len(os.sched_getaffinity(0))
+    return _POOL_SIZE
+
+
+def _forget_pool() -> None:
+    """A forked child has none of the parent's pool threads."""
+    global _POOL
+    _POOL = None
+
+
+os.register_at_fork(after_in_child=_forget_pool)
+
+
+def _spans(n: int, groups_of_8: bool) -> list[tuple[int, int]]:
+    """[lo, hi) ranges of n items for the pool: groups of 8 items, then one
+    item a range (the batch decoders: their C loop decodes whole groups of
+    8 through its 8-lane decoder and the rest one by one, so ranges that
+    start on multiples of 8 leave those groups whole), else about four
+    ranges a thread."""
+    if groups_of_8:
+        n8 = n - n % 8
+        return ([(lo, lo + 8) for lo in range(0, n8, 8)]
+                + [(i, i + 1) for i in range(n8, n)])
+    size = -(-n // (4 * _pool_threads()))
+    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]
+
+
+def _fan(run, n: int, groups_of_8: bool = False) -> list[tuple[int, int]]:
+    """[(lo, run(lo, hi))] over [0, n): one call where the library threads
+    its loop with OpenMP or one thread is all the pool has, else the
+    ranges of _spans on the pool, results in range order."""
+    global _POOL
+    if _INFO["openmp"] or _pool_threads() == 1 or n <= 1:
+        return [(0, run(0, n))]
+    spans = _spans(n, groups_of_8)
+    if len(spans) == 1:
+        return [(0, run(0, n))]
+    with _LOCK:
+        if _POOL is None:
+            _POOL = ThreadPoolExecutor(_pool_threads(),
+                                       thread_name_prefix="centropy")
+    futs = [(lo, _POOL.submit(run, lo, hi)) for lo, hi in spans]
+    return [(lo, f.result()) for lo, f in futs]
+
+
+def _first_failure(results) -> int:
+    """The code one call over every item returns: -(1+i) for the smallest
+    failing item i, else 0 (a range's codes count from its own start)."""
+    bad = [lo - rc - 1 for lo, rc in results if rc < 0]
+    return -(1 + min(bad)) if bad else 0
 
 
 def _as_cbuf(data):
@@ -368,14 +546,18 @@ def decode_batch(
         return out
     out = _out_buf(out, (n, num_blocks, 64), np.int16)
     cbuf, _keep = _as_cbuf(data)
-    rc = lib.mj423_decode_batch(
-        cbuf,
-        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        is_p.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        n, num_blocks,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
-    )
+
+    def run(lo: int, hi: int) -> int:
+        return lib.mj423_decode_batch(
+            cbuf,
+            offsets[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            lengths[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            is_p[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            hi - lo, num_blocks,
+            out[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        )
+
+    rc = _first_failure(_fan(run, n, groups_of_8=True))
     if rc != 0:
         raise ValueError(f"corrupt MJPEG423 plane bitstream (item {-rc - 1})")
     return out
@@ -406,14 +588,23 @@ def decode_batch_cm(
     cbuf, _keep = _as_cbuf(data)
     bh = num_blocks // row_blocks
     out = _out_buf(out, (n, bh, 64, row_blocks), np.int16)
-    rc = lib.mj423_decode_batch_cm(
-        cbuf,
-        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        is_p.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        n, num_blocks, row_blocks,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
-    )
+
+    def run(lo: int, hi: int) -> int:
+        return lib.mj423_decode_batch_cm(
+            cbuf,
+            offsets[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            lengths[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            is_p[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            hi - lo, num_blocks, row_blocks,
+            out[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        )
+
+    results = _fan(run, n, groups_of_8=True)
+    # -1000000 (row_blocks does not divide num_blocks) and -1000001 (out of
+    # memory) are no item's code and win, as in one call.
+    rc = min((r for _, r in results if r <= -1000000), default=None)
+    if rc is None:
+        rc = _first_failure(results)
     if rc != 0:
         raise ValueError(f"corrupt MJPEG423 plane bitstream (code {rc})")
     return out
@@ -452,15 +643,21 @@ def decode_batch_i8(
     else:
         dc = np.empty((n, num_blocks), dtype=np.int16)
         ac = np.empty((n, num_blocks, 64), dtype=np.int8)
-    rc = lib.mj423_decode_batch_i8(
-        cbuf,
-        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        lengths.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
-        is_p.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        n, num_blocks,
-        dc.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
-        ac.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-    )
+
+    def run(lo: int, hi: int) -> int:
+        return lib.mj423_decode_batch_i8(
+            cbuf,
+            offsets[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            lengths[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            is_p[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            hi - lo, num_blocks,
+            dc[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+            ac[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        )
+
+    results = _fan(run, n, groups_of_8=True)
+    # A corrupt item outranks an int8 overflow (+1), as in one call.
+    rc = _first_failure(results) or max(r for _, r in results)
     if rc < 0:
         raise ValueError(f"corrupt MJPEG423 plane bitstream (item {-rc - 1})")
     if rc > 0:
@@ -516,7 +713,7 @@ def encode_plane(coeffs: np.ndarray) -> bytes:
 def blocked_to_raster(
     blocked: np.ndarray, blocks_h: int, blocks_w: int
 ) -> np.ndarray | None:
-    """Native blocked->raster frame conversion (OpenMP streams).
+    """Native blocked->raster frame conversion (threaded over frames).
 
     blocked: (W, 8, g, 8, bwe) uint32 with bwe = (blocks_h // g) * blocks_w
     (the fused kernel's raster=False output, rows_per_step fold included).
@@ -535,11 +732,16 @@ def blocked_to_raster(
             f"{blocks_h}x{blocks_w} blocks"
         )
     out = np.empty((wf, blocks_h * 8, blocks_w * 8), dtype=np.uint32)
-    lib.mj423_blocked_to_raster(
-        b.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        wf, g, k, blocks_w,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-    )
+
+    def run(lo: int, hi: int) -> int:
+        lib.mj423_blocked_to_raster(
+            b[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            hi - lo, g, k, blocks_w,
+            out[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        )
+        return 0
+
+    _fan(run, wf)
     return out
 
 
@@ -551,7 +753,7 @@ def rgb_to_ycbcr_blocked(
     Returns (y, cb, cr), each (H//8 * W//8, 8, 8) uint8 in row-major block
     order (transform_ref.raster_to_blocks layout), or None when the native
     codec is unavailable.  Bit-exact with encode_ref.rgb_to_ycbcr_frame
-    (reference doubles, rgb_to_ycbcr.c:58-70) — one OpenMP pass instead of
+    (reference doubles, rgb_to_ycbcr.c:58-70) — one threaded pass instead of
     the NumPy multi-pass chain.
     scratch: optional dict reusing the output planes across calls — the
     returned arrays are then OVERWRITTEN by the next call with the same
@@ -569,10 +771,17 @@ def rgb_to_ycbcr_blocked(
     cb = _scratch_buf(scratch, "ycc_cb", (nb, 8, 8), np.uint8)
     cr = _scratch_buf(scratch, "ycc_cr", (nb, 8, 8), np.uint8)
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    lib.mj423_rgb_to_ycbcr_blocked(
-        r.ctypes.data_as(u8p), h, w,
-        y.ctypes.data_as(u8p), cb.ctypes.data_as(u8p), cr.ctypes.data_as(u8p),
-    )
+    bw = w // 8
+
+    def run(lo: int, hi: int) -> int:  # block rows [lo, hi)
+        lib.mj423_rgb_to_ycbcr_blocked(
+            r[8 * lo:].ctypes.data_as(u8p), 8 * (hi - lo), w,
+            y[bw * lo:].ctypes.data_as(u8p), cb[bw * lo:].ctypes.data_as(u8p),
+            cr[bw * lo:].ctypes.data_as(u8p),
+        )
+        return 0
+
+    _fan(run, h // 8)
     return y, cb, cr
 
 
@@ -600,7 +809,7 @@ def _scratch_buf(
 def encode_planes(coeffs: np.ndarray) -> list[bytes]:
     """Entropy-encode a batch: (N, num_blocks, 64) int16 -> N byte strings.
 
-    OpenMP over the independent planes (the encoder has 6 candidate planes
+    Threaded over the independent planes (the encoder has 6 candidate planes
     per frame: I and P x Y/Cb/Cr); byte-identical to encode_plane per item.
     Falls back to the serial path when the native codec is unavailable.
     """
@@ -612,11 +821,15 @@ def encode_planes(coeffs: np.ndarray) -> list[bytes]:
     cap = nb * 64 * 3 + 64
     out = np.empty((n, cap), dtype=np.uint8)
     lens = np.empty(n, dtype=np.dtype(ctypes.c_long))
-    rc = lib.mj423_encode_batch(
-        c.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), n, nb,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap,
-        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
-    )
+
+    def run(lo: int, hi: int) -> int:
+        return lib.mj423_encode_batch(
+            c[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), hi - lo,
+            nb, out[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap,
+            lens[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+        )
+
+    rc = _first_failure(_fan(run, n))
     if rc != 0:
         raise ValueError("entropy encode overflow")
     return [out[i, : lens[i]].tobytes() for i in range(n)]
@@ -860,11 +1073,16 @@ def fdct_quant_blocks(
         or not out.flags.c_contiguous
     ):
         raise ValueError("out must be C-contiguous (B, 64) int16")
-    lib.mj423_fdct_quant(
-        s.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), s.shape[0],
-        q.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
-    )
+
+    def run(lo: int, hi: int) -> int:
+        lib.mj423_fdct_quant(
+            s[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), hi - lo,
+            q.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+            out[lo:].ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        )
+        return 0
+
+    _fan(run, s.shape[0])
     return out
 
 

@@ -19,20 +19,26 @@ requires:
 
 The builds (--builds, all by default):
 
-  loaded         the library the port loads, built by native/centropy.py's
-                 ladder (-march=native -fopenmp, then -fopenmp, then
-                 plain), with the rung it stopped at: from the ladder's
-                 RuntimeWarning when this process built it, else by
-                 compiling the rungs again in order;
-  native         the ladder's base flags plus -march=native;
-  native-openmp  the same plus -fopenmp (the ladder's first rung).
+  loaded                 the library the port loads, with the rung of
+                         native/centropy.py's ladder it was built at
+                         (centropy.build_info());
+  native-openmp          -march=native -fopenmp,
+  native-openmp-libgomp  the same compiled to an object and linked against
+                         the compiler's libgomp.so.1 by path,
+  native                 -march=native,
+  openmp                 -fopenmp,
+  plain                  the base flags alone: each rung of that ladder
+                         (centropy.RUNGS), built as the ladder builds it.
 
-The last two are compiled into a temporary directory under native/_build/
-(gitignored) and bound through the port's own wrappers, a second instance
-of the centropy module each.  A build the compiler refuses is printed by
-name with the tail of its stderr and skipped.  Each build prints its flags
-and whether the 8-lane decoder is compiled in (the flags define
-__AVX512F__, __AVX512BW__ and __AVX512VBMI__ under ``cc -dM -E``).
+The rungs are compiled at once into a temporary directory under
+native/_build/ (gitignored) and bound through the port's own wrappers, a
+second instance of the centropy module each.  A build the compiler refuses
+is printed by name with the tail of its stderr and skipped.  Each build
+prints its rung, flags, whether the 8-lane decoder is compiled in (the
+flags define __AVX512F__, __AVX512BW__ and __AVX512VBMI__ under
+``cc -dM -E``) and its threads: OpenMP's, or on a build without OpenMP
+the wrappers' pool, so that there the sweep runs the wrappers' threaded
+split of the batch decoders.
 
     python mjpeg423_tpu_torch/scripts/lanes_sweep.py [trials] [seed] [--builds loaded,native,native-openmp]
 
@@ -44,16 +50,15 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import dataclasses
 import importlib.util
 import os
 import pathlib
-import re
 import subprocess
 import sys
 import tempfile
 import time
-import warnings
 
 import numpy as np
 
@@ -61,35 +66,31 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 
 from mjpeg423_tpu_torch.native import centropy  # noqa: E402
 
-SRC = pathlib.Path(centropy.__file__).resolve().with_name("centropy.c")
-BUILD_ROOT = SRC.parent / "_build"
-# native/centropy.py's build: its base flags, and the flags each rung of its
-# ladder adds, in order, with the names its warning gives them.
-BASE_FLAGS = ("-O3", "-std=c11", "-fwrapv", "-ffp-contract=off", "-fPIC",
-              "-shared")
-RUNGS = (("-march=native", "-fopenmp"), ("-fopenmp",), ())
-RUNG_NAMES = ("native ISA + OpenMP", "openmp", "plain")
-# The builds besides the loaded library: the base flags plus these.
-EXTRA_BUILDS = {
-    "native": ("-march=native",),
-    "native-openmp": ("-march=native", "-fopenmp"),
-}
+BUILD_ROOT = pathlib.Path(centropy.__file__).resolve().parent / "_build"
+# native/centropy.py's build: its base flags, and each rung of its ladder,
+# in order, by name.
+BASE_FLAGS = centropy.BASE_FLAGS
+RUNGS = tuple(r.flags for r in centropy.RUNGS)
+RUNG_NAMES = tuple(r.name for r in centropy.RUNGS)
+# The builds besides the loaded library: every rung, built as the ladder
+# builds it.
+EXTRA_BUILDS = {r.name: r for r in centropy.RUNGS}
 BUILD_NAMES = ("loaded", *EXTRA_BUILDS)
-# centropy.c compiles its 8-lane batch decoder (MJ_HAVE_LANES8) under these.
-LANES_MACROS = ("__AVX512F__", "__AVX512BW__", "__AVX512VBMI__")
 
 
 @dataclasses.dataclass
 class Build:
     """One build of centropy.c: module is a centropy module bound to it,
     None where it was not made; note is the rung, or why it was not made;
-    lanes whether the 8-lane decoder is compiled in (None: not built)."""
+    lanes whether the 8-lane decoder is compiled in (None: not built);
+    info the build's centropy.build_info()."""
 
     name: str
     flags: tuple
     lanes: bool | None
     module: object = None
     note: str = ""
+    info: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -106,54 +107,30 @@ def _tail(text: str, n: int = 300) -> str:
     return " ".join(text.split())[-n:]
 
 
-def lanes_compiled(cc: str, flags) -> bool:
-    """Whether `flags` give centropy.c its 8-lane decoder on this host."""
-    res = subprocess.run([cc, *flags, "-dM", "-E", "-x", "c", os.devnull],
-                         capture_output=True, text=True)
-    defined = {ln.split()[1] for ln in res.stdout.splitlines()
-               if ln.startswith("#define ")}
-    return res.returncode == 0 and all(m in defined for m in LANES_MACROS)
-
-
-def bind(so: pathlib.Path, name: str):
-    """A second instance of the centropy module whose wrappers call `so`
-    (confined to this script: it is not entered in sys.modules)."""
+def bind(so: pathlib.Path, name: str, info: dict, threads: int = 0):
+    """A second instance of the centropy module whose wrappers call `so`,
+    built as `info` (compile_rung's record) says (confined to this script:
+    it is not entered in sys.modules).  threads > 0 sizes its pool, on a
+    build without OpenMP; else the pool is sized as the port's."""
     spec = importlib.util.spec_from_file_location(
         f"{centropy.__package__}._sweep_{name.replace('-', '_')}",
         centropy.__file__)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod._build = lambda: so
+    mod._build = lambda: (so, info)
+    mod._POOL_SIZE = threads
     if mod._load() is None:
         raise RuntimeError(f"{so} did not load")
     return mod
 
 
-def compile_so(cc: str, flags, so: pathlib.Path) -> subprocess.Popen:
-    """Start compiling centropy.c into `so` (finish with compiled())."""
-    return subprocess.Popen([cc, *flags, "-o", str(so), str(SRC)],
-                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-                            text=True)
-
-
-def compiled(proc: subprocess.Popen) -> str | None:
-    """None when the compile succeeded, else the tail of its stderr."""
-    _, err = proc.communicate()
-    return None if proc.returncode == 0 else _tail(err)
-
-
-def _load_library():
-    """Load the port's library: (the ctypes library or None, the rung its
-    ladder's RuntimeWarning names when this call built it on a degraded
-    rung, else None)."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always", RuntimeWarning)
-        lib = centropy._load()
-    for w in caught:
-        m = re.search(r"using rung (\d)", str(w.message))
-        if m:
-            return lib, int(m.group(1))
-    return lib, None
+def compile_rung(cc: str, rung, so: pathlib.Path) -> dict | str:
+    """centropy.compile_rung's record, or the tail of the compiler's
+    stderr where it refuses."""
+    try:
+        return centropy.compile_rung(cc, rung, so)
+    except subprocess.CalledProcessError as e:
+        return _tail((e.stderr or b"").decode(errors="replace"))
 
 
 def make_builds(names, out_dir: pathlib.Path) -> list:
@@ -162,45 +139,32 @@ def make_builds(names, out_dir: pathlib.Path) -> list:
     if cc is None:
         return [Build(n, (), None, None, "no C compiler (the port parses "
                       "in Python)") for n in names]
-    jobs = {n: compile_so(cc, BASE_FLAGS + EXTRA_BUILDS[n],
-                          out_dir / f"libcentropy_{n}.so")
-            for n in names if n != "loaded"}
-    loaded = None
-    lib, rung = _load_library() if "loaded" in names else (None, None)
-    if "loaded" in names and lib is None:
-        loaded = Build("loaded", (), None, None, "the ladder built nothing")
-    elif "loaded" in names:
-        how = "the ladder's RuntimeWarning"
-        if rung is None:
-            # Built before this call (earlier in the process, or a cached
-            # .so): the same compiler, flags and source stop at the same
-            # rung, so compile the rungs again in order, the first beside
-            # the other builds.
-            how = "the ladder compiled again"
-            first = compile_so(cc, BASE_FLAGS + RUNGS[0], out_dir / "rung0.so")
-            rung = 0
-            if compiled(first) is not None:
-                rung = 1
-                while rung < len(RUNGS) - 1 and compiled(compile_so(
-                        cc, BASE_FLAGS + RUNGS[rung],
-                        out_dir / f"rung{rung}.so")) is not None:
-                    rung += 1
-        flags = BASE_FLAGS + RUNGS[rung]
-        loaded = Build("loaded", flags, lanes_compiled(cc, flags), centropy,
-                       f"rung {rung} ({RUNG_NAMES[rung]}; from {how})")
+    extra = [n for n in names if n != "loaded"]
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(extra))) as ex:
+        jobs = {n: ex.submit(compile_rung, cc, EXTRA_BUILDS[n],
+                             out_dir / f"libcentropy_{n}.so") for n in extra}
+        made = {n: f.result() for n, f in jobs.items()}
     builds = []
     for name in names:
         if name == "loaded":
-            builds.append(loaded)
+            info = centropy.build_info()
+            if info["rung"] is None:
+                builds.append(Build("loaded", (), None, None,
+                                    "the ladder built nothing"))
+                continue
+            index = RUNG_NAMES.index(info["rung"])
+            builds.append(Build("loaded", tuple(info["flags"]), info["lanes"],
+                                centropy, f"rung {index} ({info['rung']})",
+                                info))
             continue
-        flags = BASE_FLAGS + EXTRA_BUILDS[name]
-        err = compiled(jobs[name])
-        if err:
-            builds.append(Build(name, flags, None, None, err))
-        else:
-            builds.append(Build(name, flags, lanes_compiled(cc, flags),
-                                bind(out_dir / f"libcentropy_{name}.so",
-                                     name), "built"))
+        rec = made[name]
+        flags = BASE_FLAGS + EXTRA_BUILDS[name].flags
+        if isinstance(rec, str):
+            builds.append(Build(name, flags, None, None, rec))
+            continue
+        mod = bind(out_dir / f"libcentropy_{name}.so", name, rec)
+        builds.append(Build(name, flags, rec["lanes"], mod, "built",
+                            mod.build_info()))
     return builds
 
 
@@ -208,8 +172,10 @@ def describe(b: Build) -> str:
     if b.module is None:
         return (f"[build] {b.name}: NOT BUILT ({b.note}); flags "
                 f"{' '.join(b.flags) or '-'}")
-    return (f"[build] {b.name}: {b.note}; flags {' '.join(b.flags)}; "
-            f"lanes: {'yes' if b.lanes else 'no'}")
+    gomp = f" + {b.info['libgomp']}" if b.info.get("libgomp") else ""
+    return (f"[build] {b.name}: {b.note}; flags {' '.join(b.flags)}{gomp}; "
+            f"lanes: {'yes' if b.lanes else 'no'}; threads: "
+            f"{b.info.get('threads')} ({b.info.get('threads_from')})")
 
 
 def draw_trial(rng: np.random.Generator, encode_plane) -> Trial:

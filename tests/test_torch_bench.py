@@ -299,6 +299,9 @@ def test_headline_is_the_named_path_not_the_fastest(tmp_path):
     assert set(tree["paths"]) == {"fused", "cm", "xla"}
     for row in tree["paths"].values():
         assert row["chain"]["reps"] == 5 and row["device"] == "cpu"
+    # The run's environment names the host codec's build.
+    assert tree["environment"]["native_build"] == \
+        bench.centropy.build_info()
 
 
 def _corrupt(fn):

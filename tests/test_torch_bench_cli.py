@@ -3,7 +3,8 @@
 (mjpeg423_tpu_torch/scripts/bench_multihost.py, the counterpart of
 scripts/bench_multihost.py), on the CPU with --device cpu: two real worker
 processes in one gloo group on localhost, and the embedded kernel-bound
-repetition the one whose efficiency is the median.  The ``cuda`` case runs
+repetition the one whose efficiency is the median; and the two-tree pairs
+script (mjpeg423_tpu_torch/scripts/bench_pairs.py).  The ``cuda`` case runs
 the workers on the card and skips without one:
 
     python -m pytest --noconftest -m cuda tests/test_torch_bench_cli.py
@@ -88,3 +89,40 @@ def test_multihost_on_the_card(cuda, multihost_script, capsys):  # noqa: F811
                                   "--kb-reps", "1", "--frames", "16"]) == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["device"] == "cuda" and res["n_hosts"]["frames_total"] == 16
+
+
+def test_bench_pairs_alternates_the_trees(tmp_path, monkeypatch, capsys):
+    """bench_pairs runs parent, change, change, parent for two pairs and
+    lists each tree's frames/s in run order with the pairs won."""
+    spec = importlib.util.spec_from_file_location(
+        "port_bench_pairs", ROOT / "mjpeg423_tpu_torch/scripts/bench_pairs.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    runs = []
+
+    def fake_bench(root, stages, out, device):
+        tree = "parent" if root.name == "p" else "change"
+        runs.append((tree, out.name, stages, device))
+        fps = (10.0 if tree == "parent" else 20.0) + len(runs)
+        build = None if tree == "parent" else {"rung": "native"}
+        return {"environment": {"device": "cpu", "native_build": build},
+                "stages": {"parse": {"frames_per_s": fps, "geometry": "x",
+                                     "frames_per_s_i8": fps / 2}}}
+
+    monkeypatch.setattr(mod, "bench", fake_bench)
+    monkeypatch.setattr("sys.argv", [
+        "bench_pairs.py", "--parent", str(tmp_path / "p"), "--change",
+        str(tmp_path / "c"), "--pairs", "2", "--stages", "parse",
+        "--out-dir", str(tmp_path / "out"), "--device", "cpu"])
+    assert mod.main() == 0
+    assert [r[:2] for r in runs] == [
+        ("parent", "parent-0.json"), ("change", "change-1.json"),
+        ("change", "change-2.json"), ("parent", "parent-3.json")]
+    assert {r[2:] for r in runs} == {("parse", "cpu")}
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["rates"]["parse"]["frames_per_s"] == {
+        "parent": [11.0, 14.0], "change": [22.0, 23.0],
+        "pairs_won_by_change": 2}
+    assert res["native_build"] == {"parent": None,
+                                   "change": {"rung": "native"}}
+    assert res["card"] == "cpu, None" and res["pairs"] == 2

@@ -9,15 +9,15 @@ lengths, P/I flags and block counts, byte for byte.  On those trials the
 port's native codec and the JAX package's give equal decode_batch,
 decode_batch_i8 and decode_batch_cm outputs, or the same error text.  The
 sweep itself runs clean over the loaded library and a -march=native build
-made here, and fails a build that is wrong.
+made here, also through the wrappers' threaded split of a build without
+OpenMP, and fails a build that is wrong.
 """
-import ast
 import importlib.util
 import pathlib
 import runpy
+import subprocess
 import sys
 import types
-import warnings
 
 import numpy as np
 import pytest
@@ -126,15 +126,40 @@ def test_twenty_trials_clean_over_loaded_and_native(sweep, cc, capsys):
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-1].startswith("ALL 20 TRIALS CLEAN")
     native_flags = sweep.BASE_FLAGS + ("-march=native",)
-    lanes = "yes" if sweep.lanes_compiled(cc, native_flags) else "no"
+    lanes = "yes" if port_centropy.lanes_compiled(cc, native_flags) else "no"
     assert (f"[build] native: built; flags {' '.join(native_flags)}; "
-            f"lanes: {lanes}") in out
+            f"lanes: {lanes}; threads: ") in "\n".join(out)
+    info = port_centropy.build_info()
     loaded = [ln for ln in out if ln.startswith("[build] loaded: rung ")]
-    assert len(loaded) == 1 and "lanes: " in loaded[0]
+    assert len(loaded) == 1 and f"({info['rung']}); flags " in loaded[0]
+    assert f"threads: {info['threads']} ({info['threads_from']})" \
+        in loaded[0]
     assert "[build] loaded: 20 trials clean (" in "\n".join(out)
     assert "[build] native: 20 trials clean (" in "\n".join(out)
 
 
+def test_twenty_trials_through_the_threaded_split(sweep, cc, capsys,
+                                                  monkeypatch):
+    """Rung (c), -march=native without OpenMP: the wrappers split each
+    batch over their pool (3 threads here), and the sweep holds the split
+    decode to the scalar decoder, the error index included."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "3")
+    fanned = []
+    real = port_centropy.ThreadPoolExecutor.submit
+
+    def counting(self, fn, *args, **kw):
+        if fn.__qualname__.endswith("<locals>.run"):  # a wrapper's range
+            fanned.append(args)
+        return real(self, fn, *args, **kw)
+
+    monkeypatch.setattr(port_centropy.ThreadPoolExecutor, "submit",
+                        counting)
+    assert sweep.main(["20", "0", "--builds", "native"]) == 0
+    out = capsys.readouterr().out
+    assert "threads: 3 (pool)" in out and "ALL 20 TRIALS CLEAN" in out
+    assert "[build] native: 20 trials clean (" in out
+    # Every trial has 8-24 planes: ranges of 8 and single items.
+    assert fanned and {hi - lo for lo, hi in fanned} <= {1, 8}
 def _first_decoding_trial(sweep, seed=0):
     rng = np.random.default_rng(seed)
     for t in range(200):
@@ -177,7 +202,8 @@ def test_a_build_that_differs_fails(sweep):
 
 def test_a_refused_build_is_named_and_skipped(sweep, cc, tmp_path,
                                              monkeypatch):
-    monkeypatch.setitem(sweep.EXTRA_BUILDS, "bogus", ("-fno-such-flag",))
+    monkeypatch.setitem(sweep.EXTRA_BUILDS, "bogus", port_centropy.Rung(
+        "bogus", ("-fno-such-flag",)))
     builds = sweep.make_builds(["bogus"], tmp_path)
     (b,) = builds
     assert b.module is None and b.lanes is None and "fno-such-flag" in b.note
@@ -186,8 +212,8 @@ def test_a_refused_build_is_named_and_skipped(sweep, cc, tmp_path,
 
 
 def test_a_compiler_without_openmp(sweep, cc, tmp_path, monkeypatch):
-    """The card machine's compiler: -fopenmp fails, so native-openmp is
-    named and skipped while native is built and swept."""
+    """A compiler with no OpenMP at all: every -fopenmp rung is named and
+    skipped while native is built and swept."""
     fake = tmp_path / "cc-no-openmp"
     fake.write_text(
         "#!/bin/sh\nfor a in \"$@\"; do [ \"$a\" = -fopenmp ] && "
@@ -198,46 +224,109 @@ def test_a_compiler_without_openmp(sweep, cc, tmp_path, monkeypatch):
     builds = sweep.make_builds(["native-openmp", "native"], tmp_path)
     assert [b.module is not None for b in builds] == [False, True]
     assert "libgomp.spec" in builds[0].note
+    assert builds[1].info["threads_from"] == "pool"
     counts = sweep.sweep(builds, 5, 3, log=lambda _s: None)
     assert list(counts) == ["native"] and sum(counts["native"].values()) == 5
 
 
-def test_rung_from_the_ladder_warning(sweep, cc, tmp_path, monkeypatch):
-    """A degraded rung is read from the ladder's RuntimeWarning, in the
-    words native/centropy.py gives it."""
-    src = (ROOT / "mjpeg423_tpu_torch/native/centropy.py").read_text()
-    assert 'using rung "\n' in src and "f\"{rung} ({'openmp' if rung == 1" \
-        in src
-    lib = port_centropy._load()
-
-    def degraded():
-        warnings.warn("centropy: native-ISA build rung failed; using rung 2 "
-                      "(plain). First rung stderr tail: x", RuntimeWarning)
-        return lib
-
-    monkeypatch.setattr(port_centropy, "_load", degraded)
+def test_rung_from_the_ladder_warning(sweep, tmp_path):
+    """The loaded build is described by the rung build_info() gives it."""
     (b,) = sweep.make_builds(["loaded"], tmp_path)
-    assert b.note == "rung 2 (plain; from the ladder's RuntimeWarning)"
-    assert b.flags == sweep.BASE_FLAGS and b.lanes is False
-    assert b.module is port_centropy
+    info = port_centropy.build_info()
+    assert b.module is port_centropy and b.info == info
+    assert b.note == (f"rung {sweep.RUNG_NAMES.index(info['rung'])} "
+                      f"({info['rung']})")
+    assert b.flags == tuple(info["flags"]) and b.lanes is info["lanes"]
+    assert b.flags[:len(sweep.BASE_FLAGS)] == sweep.BASE_FLAGS
 
 
-def test_the_ladder_copy_matches_centropy_py(sweep):
-    """BASE_FLAGS and RUNGS are native/centropy.py's base flags and rungs."""
-    tree = ast.parse(
-        (ROOT / "mjpeg423_tpu_torch/native/centropy.py").read_text())
-    fn = next(n for n in ast.walk(tree)
-              if isinstance(n, ast.FunctionDef) and n.name == "_build")
-    assigned = {n.targets[0].id: n.value for n in ast.walk(fn)
-                if isinstance(n, ast.Assign)
-                and isinstance(n.targets[0], ast.Name)}
+def test_the_ladder_copy_matches_centropy_py(sweep, cc, tmp_path,
+                                             monkeypatch):
+    """BASE_FLAGS, RUNGS and RUNG_NAMES are native/centropy.py's, and its
+    ladder tries the rungs in that order: a compiler that refuses every
+    build sees each rung's flags once, in turn."""
+    assert sweep.BASE_FLAGS == port_centropy.BASE_FLAGS
+    assert sweep.RUNGS == tuple(r.flags for r in port_centropy.RUNGS)
+    assert sweep.RUNG_NAMES == ("native-openmp", "native-openmp-libgomp",
+                                "native", "openmp", "plain")
+    assert sweep.RUNGS == (("-march=native", "-fopenmp"),
+                           ("-march=native", "-fopenmp"),
+                           ("-march=native",), ("-fopenmp",), ())
+    assert list(sweep.EXTRA_BUILDS) == list(sweep.RUNG_NAMES)
+    log = tmp_path / "calls"
+    fake = tmp_path / "cc-refuses"
+    fake.write_text(f'#!/bin/sh\necho "$*" >> {log}\n'
+                    f'case "$*" in *-print-file-name*) exec {cc} "$@";; '
+                    "esac\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CC", str(fake))
+    spec = importlib.util.spec_from_file_location(
+        f"{port_centropy.__package__}._ladder", port_centropy.__file__)
+    ladder = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ladder)
+    ladder._BUILD = tmp_path / "build"
+    assert ladder._build() is None
+    calls = [ln.split() for ln in log.read_text().splitlines()
+             if "-print-file-name" not in ln]
+    base = list(sweep.BASE_FLAGS)
+    tried = [tuple(c[len(base):c.index("-o")]) for c in calls]
+    assert all(c[:len(base)] == base for c in calls)
+    # Rung (b) compiles with -c first; the refusal stops it there.
+    assert tried == [("-march=native", "-fopenmp"),
+                     ("-march=native", "-fopenmp", "-c"),
+                     ("-march=native",), ("-fopenmp",), ()]
 
-    def consts(node):
-        return tuple(e.value for e in node.elts
-                     if isinstance(e, ast.Constant))
-    assert tuple(f for f in consts(assigned["base"]) if f != "-o") \
-        == sweep.BASE_FLAGS
-    rungs = tuple(consts(e.right) if isinstance(e, ast.BinOp) else ()
-                  for e in assigned["attempts"].elts)
-    assert rungs == sweep.RUNGS
-    assert sweep.EXTRA_BUILDS["native-openmp"] == sweep.RUNGS[0]
+
+PHASE_11 = """
+import pathlib, tempfile
+import chip_smoke as cs
+from mjpeg423_tpu_torch.native import centropy
+
+ls = cs._port_script("lanes_sweep")
+with tempfile.TemporaryDirectory(dir=ls.BUILD_ROOT) as td:
+    (plain,) = ls.make_builds(["plain"], pathlib.Path(td))
+    old = ls.bind(pathlib.Path(td) / "libcentropy_plain.so", "plain_1",
+                  plain.info, threads=1)
+    assert old.build_info()["threads"] == 1, old.build_info()
+    failures = []
+    pairs = cs.native_pairs(old, centropy, (32, 48, 3), 2, failures)
+    assert failures == [], failures
+    assert set(pairs) == {"decode_batch", "blocked_to_raster",
+                          "candidate_sizes"}, pairs
+    for row in pairs.values():
+        assert row["old"]["frames_per_s"] > 0 and row["new"]["frames_per_s"] > 0
+        assert 0 <= row["pairs_won_by_loaded"] <= 2
+    inflight = cs.native_inflight(centropy, (32, 48, 3), 1)
+    assert list(inflight) == ["1", "2", "4"], inflight
+    # A build whose sizes differ fails the pair's check.
+    real = old.candidate_sizes
+    old.candidate_sizes = lambda *a, **k: [s + 1 for s in real(*a, **k)]
+    cs.native_pairs(old, centropy, (32, 48, 3), 1, failures)
+    assert len(failures) == 1 and "candidate_sizes" in failures[0], failures
+
+# No quiet fall back: the two checks of the loaded build.
+info = centropy.build_info()
+good = {**info, "flags": ["-march=native"], "threads": 8}
+for bad, made, cores, n in (
+        (good, ["native"], 8, 0),
+        ({**good, "flags": ["-O3"]}, ["native", "plain"], 8, 1),
+        ({**good, "flags": ["-O3"]}, ["plain"], 8, 0),
+        ({**good, "threads": 1, "threads_from": "pool"}, ["native"], 8, 1),
+        ({**good, "threads": 1}, ["native"], 1, 0)):
+    failures = []
+    cs.check_native_build(failures, bad, made, cores)
+    assert len(failures) == n, (bad, made, cores, failures)
+print("OK")
+"""
+
+
+def test_chip_smoke_phase_11_pairs_and_checks_on_the_cpu():
+    """chip_smoke.py's phase 11c pairs (the plain rung on one thread
+    against the loaded build) and in-flight rates, rehearsed small on the
+    CPU in a process of their own (chip_smoke blocks jax on import), and
+    its two checks of the loaded build: no -march=native where the native
+    rung builds, one thread on a host of several cores."""
+    res = subprocess.run([sys.executable, "-c", PHASE_11], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip().endswith("OK"), (
+        res.stdout[-3000:] + res.stderr[-3000:])
