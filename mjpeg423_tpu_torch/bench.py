@@ -951,7 +951,7 @@ def _seek_decomposition(run: Run, pipe, data, amps, gop, f_gop, h, w) -> dict:
     index = fmt.index_frames(data)
     parse_ms = median_ms(lambda: pipe.parse_window(data, index, gop, f_gop), 7)
     amps_w = pipe.parse_window(data, index, gop, f_gop)
-    dev_amps = pipe._put_window(amps_w, f_gop, f_gop, b)
+    dev_amps = pipe._put_window(amps_w, f_gop, f_gop)
     segw = np.zeros(f_gop, dtype=bool)
     segw[0] = True
     step = pipe._get_step(h // 8, w // 8)

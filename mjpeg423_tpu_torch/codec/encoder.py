@@ -703,13 +703,14 @@ def _encode_frames_device_fused(
                 scratch: dict = {}
                 for ws in range(0, nf, W):
                     count = min(W, nf - ws)
-                    while True:
-                        try:
-                            stage = slot_pool.get(timeout=0.1)
-                            break
-                        except queue.Empty:
-                            if stop.is_set():
-                                return
+                    with prof.time("encode/slot_wait"):
+                        while True:
+                            try:
+                                stage = slot_pool.get(timeout=0.1)
+                                break
+                            except queue.Empty:
+                                if stop.is_set():
+                                    return
                     convert(stage.numpy(), ws, count, scratch)
                     with prof.time("encode/device_dispatch"):
                         payload = dispatch(stage, streams)
@@ -728,7 +729,8 @@ def _encode_frames_device_fused(
         fi = 0
         try:
             while True:
-                item = out_q.get()
+                with prof.time("encode/queue_wait"):
+                    item = out_q.get()
                 if item is None:
                     break
                 if isinstance(item, _StageError):

@@ -307,33 +307,40 @@ class DecodePipeline:
 
         return downscale
 
-    def _put_window(self, amps, c: int, w: int, nb: int,
+    def _put_window(self, amps, c: int, w: int,
                     device: torch.device | None = None):
         """Pad a parsed window to the window length (zero deltas repeat
         the last frame; padded rows are dropped at drain) and put it on
         `device` (default: this pipeline's), preserving the parse layout
-        tag ("cm"/"i8"/block-major)."""
-        if isinstance(amps, tuple) and amps[0] == "cm":
-            cm = amps[1]
-            if c < w:
-                pcm = np.zeros((3, w) + cm.shape[2:], dtype=np.int16)
-                pcm[:, :c] = cm
-                cm = pcm
-            return ("cm", self._put(cm, device))
-        if isinstance(amps, tuple):  # packed ("i8", dc, ac8)
-            _, dc, ac = amps
-            if c < w:
-                pdc = np.zeros((3, w, nb), dtype=np.int16)
-                pac = np.zeros((3, w, nb, 64), dtype=np.int8)
-                pdc[:, :c] = dc
-                pac[:, :c] = ac
-                dc, ac = pdc, pac
-            return ("i8", self._put(dc, device), self._put(ac, device))
+        tag ("cm"/"i8"/block-major).  Every array of a parse result holds
+        the window's frames on axis 1.  Probes: pipeline/pad (short windows
+        only), device/put (the copy alone), and the counters of
+        _count_copy."""
+        tag = amps[0] if isinstance(amps, tuple) else None
+        arrays = list(amps[1:]) if tag else [amps]
         if c < w:
-            pad = np.zeros((3, w, nb, 64), dtype=np.int16)
-            pad[:, :c] = amps
-            amps = pad
-        return self._put(amps, device)
+            with self.profiler.time("pipeline/pad"):
+                for i, a in enumerate(arrays):
+                    pad = np.zeros(a.shape[:1] + (w,) + a.shape[2:], a.dtype)
+                    pad[:, :c] = a
+                    arrays[i] = pad
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        self._count_copy("h2d", host, c, w)
+        with self.profiler.time("device/put"):
+            put = [t.to(device or self.device, non_blocking=True)
+                   for t in host]
+        return (tag, *put) if tag else put[0]
+
+    def _count_copy(self, way: str, host, c: int, rows: int) -> None:
+        """Counters of one window's copy ("h2d" or "d2h") of the host
+        tensors `host`, whose `rows` frames beyond the first c are pad:
+        copy/<way>_bytes.pinned or .pageable (every byte, by the host
+        side's memory) and copy/<way>_pad_bytes (the pad's)."""
+        nbytes = sum(t.nbytes for t in host)
+        kind = "pinned" if all(t.is_pinned() for t in host) else "pageable"
+        self.profiler.add_size(f"copy/{way}_bytes.{kind}", nbytes)
+        self.profiler.add_size(f"copy/{way}_pad_bytes",
+                               nbytes * (rows - c) // rows)
 
     # ----- Full pipeline ------------------------------------------------
 
@@ -367,7 +374,7 @@ class DecodePipeline:
             devices = [self.device]
 
         def run(dev, amps, layout):
-            step(self._put_window(amps, w, w, nb, dev), self._put(seg, dev),
+            step(self._put_window(amps, w, w, dev), self._put(seg, dev),
                  self._zero_carry(layout, bh, bw, dev))
 
         for dev in devices:
@@ -398,12 +405,12 @@ class DecodePipeline:
         finally:
             parsed.close()
 
-    @staticmethod
-    def _parse_ahead(jobs, parse, max_inflight: int, workers: int | None,
-                     latency_first: bool):
+    def _parse_ahead(self, jobs, parse, max_inflight: int,
+                     workers: int | None, latency_first: bool):
         """Yield (key, count, seg, parse result) per job, in order, with up
         to max_inflight parses running ahead on a thread pool (only the
-        first one until it is taken, with latency_first)."""
+        first one until it is taken, with latency_first).  The probe
+        pipeline/parse_wait times the caller's wait for each parse."""
         todo = iter(jobs)
         ex = ThreadPoolExecutor(max_workers=workers)
         futs: collections.deque = collections.deque()
@@ -416,7 +423,8 @@ class DecodePipeline:
             submit(1 if latency_first else max_inflight)
             while futs:
                 (key, c, seg_c), fut = futs.popleft()
-                amps = fut.result()
+                with self.profiler.time("pipeline/parse_wait"):
+                    amps = fut.result()
                 submit(max_inflight - len(futs))
                 yield key, c, seg_c, amps
         finally:
@@ -439,7 +447,6 @@ class DecodePipeline:
         """
         cfg = self.config
         w = cfg.frames_per_batch
-        nb = blocks_h * blocks_w
         step = self._get_step(blocks_h, blocks_w)
         downscale = (self._get_downscale(blocks_h, blocks_w, scale)
                      if scale != 1 else None)
@@ -458,13 +465,10 @@ class DecodePipeline:
                                          blocks_w, CM_FOLD)
             seg = np.zeros(w, dtype=bool)
             seg[:c] = seg_c
-            with self.profiler.time("device/put"):
-                dev_amps = self._put_window(amps, c, w, nb)
-                dev_seg = self._put(seg)
-            with self.profiler.time("device/dispatch"):
-                frames, carry = step(dev_amps, dev_seg, carry)
-                if downscale is not None:
-                    frames = downscale(frames)
+            frames, carry = step(self._put_window(amps, c, w), self._put(seg),
+                                 carry)
+            if downscale is not None:
+                frames = downscale(frames)
             pending.append((key, c, frames))
             keep = 0 if latency_first and first else ring
             first = False
@@ -646,7 +650,6 @@ class DecodePipeline:
         num_output_buffers steps releases them.
         """
         w = self.config.frames_per_batch
-        nb = blocks_h * blocks_w
         step = self._get_step(blocks_h, blocks_w)
         ring = max(1, self.config.num_output_buffers)
         devices = self._mesh_devices
@@ -657,11 +660,9 @@ class DecodePipeline:
             lo, cnt, seg_c, amps = item
             seg = np.zeros(w, dtype=bool)
             seg[:cnt] = seg_c
-            with self.profiler.time("device/put"):
-                dev_amps = self._put_window(amps, cnt, w, nb, devices[d])
-                dev_seg = self._put(seg, devices[d])
-            with self.profiler.time("device/dispatch"):
-                frames, carries[d] = step(dev_amps, dev_seg, carries[d])
+            dev = devices[d]
+            frames, carries[d] = step(self._put_window(amps, cnt, w, dev),
+                                      self._put(seg, dev), carries[d])
             return lo, cnt, frames
 
         pending: collections.deque = collections.deque()
@@ -776,7 +777,7 @@ class DecodePipeline:
         )
         try:
             for ents, c, frames in wins:
-                host = self._host_frames(frames, bh, bw)
+                host = self._host_frames(frames, bh, bw, c)
                 for i in range(c):
                     si, fi = ents[i]
                     yield si, fi, host[i]
@@ -810,13 +811,22 @@ class DecodePipeline:
         idx = np.array([i for i, _ in pairs], dtype=np.int64)
         return idx, np.stack([f for _, f in pairs])
 
-    def _host_frames(self, frames, blocks_h: int, blocks_w: int) -> np.ndarray:
+    def _host_frames(self, frames, blocks_h: int, blocks_w: int,
+                     count: int) -> np.ndarray:
         """A window's device frames -> host raster frames (rows beyond the
-        window's count included)."""
+        window's count included).  Probes: output/wait, the wait for the
+        work queued ahead of the copy (on CUDA a synchronize of the current
+        stream, which the in-order copy would wait for anyway; on the CPU
+        nothing); output/transfer, the D2H alone; output/raster; and the
+        counters of _count_copy, the rows beyond count as pad."""
+        with self.profiler.time("output/wait"):
+            if frames.is_cuda:
+                torch.cuda.current_stream(frames.device).synchronize()
         with self.profiler.time("output/transfer"):
-            host = frames.cpu().numpy()
+            host = frames.cpu()
+        self._count_copy("d2h", [host], count, host.shape[0])
         with self.profiler.time("output/raster"):
-            return self._to_raster(host, blocks_h, blocks_w)
+            return self._to_raster(host.numpy(), blocks_h, blocks_w)
 
     def _drain(self, item, blocks_h: int, blocks_w: int,
                device_resident: bool = False) -> DecodedWindow:
@@ -827,7 +837,7 @@ class DecodePipeline:
             # pad.
             return DecodedWindow(s, c, frames)
         return DecodedWindow(s, c, self._host_frames(frames, blocks_h,
-                                                     blocks_w)[:c])
+                                                     blocks_w, c)[:c])
 
     def decode_array(self, data: bytes, **kw) -> np.ndarray:
         """Decode fully into one (F, H, W) uint32 array, reassembled by

@@ -8,10 +8,14 @@ only whole-video wall time (main.c:113-123).  Here every pipeline stage gets
 a probe by default, cheap enough to leave on; torch.profiler traces are
 opt-in via Profiler.trace_dir.
 
-The one change from the original: start_trace/stop_trace drive
+Two changes from the original.  start_trace/stop_trace drive
 torch.profiler (CPU and, with a card, CUDA activities) and write
 <trace_dir>/trace.json in Chrome's trace format, where the original drives
-jax.profiler.  Probes and reports are as copied.
+jax.profiler.  And time(name) is also a torch.profiler.record_function span
+while a torch profiler records on the calling thread, so that each timed
+stage lies in the same trace as the kernels and copies, on their clock;
+with none recording it costs one check of torch's profiler state.  Probes,
+counters and reports are as copied.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import dataclasses
 import os
 import threading
 import time
+
+import torch
 
 
 @dataclasses.dataclass
@@ -80,9 +86,13 @@ class Profiler:
 
     @contextlib.contextmanager
     def time(self, name: str):
+        span = (torch.profiler.record_function(name)
+                if torch.autograd._profiler_enabled()
+                else contextlib.nullcontext())
         t0 = time.perf_counter()
         try:
-            yield
+            with span:
+                yield
         finally:
             self.probe(name).add(time.perf_counter() - t0)
 
@@ -96,7 +106,6 @@ class Profiler:
         with self._lock:
             if not self.trace_dir or self._trace is not None:
                 return
-            import torch
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU]

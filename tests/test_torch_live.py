@@ -182,7 +182,8 @@ def test_live_reuses_warm_pipeline(stream, stored_frames, layout):
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, stored_frames)
     assert len(jpipe._step_cache) == 1
-    assert prof.probe("device/dispatch").count == 2 * 4  # 23 frames, W=7
+    # One H2D a window: 23 frames, W=7.
+    assert prof.probe("copy/h2d_bytes.pageable").count == 2 * 4
 
 
 @pytest.mark.parametrize("case", ["truncated-mid-frame", "open-ended-truncated",

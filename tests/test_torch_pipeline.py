@@ -199,8 +199,7 @@ def test_carry_from_a_jax_window_continues_in_the_port(jax_runtime, stream):
     outs = [np.asarray(first)]
     for s in range(w, index.num_frames, w):
         c = min(w, index.num_frames - s)
-        amps = port._put_window(port.parse_window(data, index, s, c), c, w,
-                                bh * bw)
+        amps = port._put_window(port.parse_window(data, index, s, c), c, w)
         seg = np.zeros(w, dtype=bool)
         seg[:c] = index.is_iframe[s:s + c]
         frames, carry = step(amps, port._put(seg), carry)
