@@ -35,17 +35,24 @@ def plane_spans(index: fmt.FrameIndex, fsel: np.ndarray):
 
 def parse_block_major(
     data: bytes, index: fmt.FrameIndex, fsel: np.ndarray, *,
-    native: bool = True,
+    native: bool = True, out: np.ndarray | None = None,
 ) -> np.ndarray:
     """Frames `fsel` -> (3, len(fsel), B, 64) int16 amplitudes: one native
     call over all the plane bitstreams, or (native=False, or no compiler)
-    the NumPy reference decoder plane by plane."""
+    the NumPy reference decoder plane by plane.  out: a flat int16 buffer
+    of at least 3 * len(fsel) * B * 64 elements that the amplitudes are
+    written into, from its start; the result is then a view of it."""
     count = len(fsel)
     nb = index.header.blocks_per_plane
+    if out is not None:
+        out = out[:3 * count * nb * 64].reshape(3, count, nb, 64)
     if native and centropy.native_available():
-        out = centropy.decode_batch(data, *plane_spans(index, fsel), nb)
-        return out.reshape(3, count, nb, 64)
-    out = np.empty((3, count, nb, 64), dtype=np.int16)
+        dst = None if out is None else out.reshape(3 * count, nb, 64)
+        res = centropy.decode_batch(data, *plane_spans(index, fsel), nb,
+                                    out=dst)
+        return res.reshape(3, count, nb, 64)
+    if out is None:
+        out = np.empty((3, count, nb, 64), dtype=np.int16)
     for p in range(3):
         for i in range(count):
             fi = int(fsel[i])

@@ -548,7 +548,7 @@ def decode_live(
         windows = parsed(first)
         wins = pipe._dispatch(
             windows, bh, bw, carry_layout="cm" if want_cm else "bm",
-            scale=scale,
+            scale=scale, to_host=not device_resident,
         )
         for item in wins:
             if stop_flag.is_set():

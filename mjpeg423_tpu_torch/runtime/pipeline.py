@@ -25,6 +25,17 @@ look-ahead on a thread pool (_parse_ahead), then the device loop (_dispatch):
 the carry-layout switch, put, step, downscale and the output ring.
 runtime/live.py's decode_live feeds _dispatch from its own reader threads.
 
+Both copies of a window go through host staging buffers, pinned on CUDA
+(_host_buffer): the look-ahead parses each window straight into one, the
+put copies only its real rows, and a window that is drained to the host
+lands in one right after its step.  Neither copy blocks the decoding
+thread.  A buffer is dropped once nothing holds it; torch's caching host
+allocator reuses its pinned block only after the copy that read or filled
+it has completed, and a parse that close() cannot stop holds its own
+buffer until it ends.  A parse result that is a plain array (decode_live's
+readers, the cm and i8 layouts, the mesh loop) takes the pageable copies
+instead.
+
 Every window runs one of three kernels, chosen by the layout its parse
 produced (ops/transform_fused -> csrc/decode_window.cu): block-major K1
 (the default), coefficient-major K2 (coef_major=True) or int8-packed K3
@@ -109,6 +120,16 @@ class RecoveryLog:
         return sum(hi - lo for lo, hi in self.skipped)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Landed:
+    """A window's frames on their way to the host: `rows`, the window's
+    count frames in a host buffer, there once `event` has completed (None
+    on the CPU, where the copy is done when it returns)."""
+
+    rows: torch.Tensor
+    event: object
+
+
 def _device_step_factory(blocks_h: int, blocks_w: int, raster_on_device: bool):
     """The windowed decode step with coefficient-state carry: one kernel
     launch per window on CUDA tensors, the plain version on CPU, dispatched
@@ -166,10 +187,21 @@ class DecodePipeline:
             self.device = self._mesh_devices[0]
 
     def _put(self, x, device: torch.device | None = None):
-        """Host array -> `device` (default: this pipeline's)."""
-        return torch.from_numpy(np.ascontiguousarray(x)).to(
-            device or self.device, non_blocking=True
-        )
+        """Host array -> `device` (default: this pipeline's), through
+        pinned memory on CUDA so that the copy does not block."""
+        device = device or self.device
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    def _host_buffer(self, numel: int, dtype: torch.dtype) -> torch.Tensor:
+        """A flat host staging buffer: pinned where the pipeline faces a
+        CUDA device, from torch's caching host allocator, which hands a
+        block out again only once the copies recorded on it have
+        completed; a plain tensor on the CPU."""
+        return torch.empty(numel, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
 
     # ----- Stage A: host entropy parse ---------------------------------
 
@@ -202,6 +234,7 @@ class DecodePipeline:
         want_packed: bool = False,
         want_cm: bool = False,
         frames: np.ndarray | None = None,
+        out: np.ndarray | None = None,
     ):
         """Entropy-decode frames [start, start+count).
 
@@ -216,6 +249,10 @@ class DecodePipeline:
         ac (3, count, B, 64) int8) consumed by the i8 kernel (half the
         host->device bytes; the native decoder emits it directly and
         signals fallback when a stream needs the full range).
+
+        out: a flat int16 buffer of at least 3 * count * B * 64 elements (a
+        host staging buffer) that a block-major result is written into and
+        is a view of; the other layouts leave it untouched.
         """
         if frames is None:
             fsel = np.arange(start, start + count)
@@ -258,7 +295,8 @@ class DecodePipeline:
                         dc.reshape(3, count, nb),
                         ac.reshape(3, count, nb, 64),
                     )
-            return parse_block_major(data, index, fsel, native=native)
+            return parse_block_major(data, index, fsel, native=native,
+                                     out=out)
 
     # ----- Stage B: device step ----------------------------------------
 
@@ -315,7 +353,27 @@ class DecodePipeline:
         tag ("cm"/"i8"/block-major).  Every array of a parse result holds
         the window's frames on axis 1.  Probes: pipeline/pad (short windows
         only), device/put (the copy alone), and the counters of
-        _count_copy."""
+        _count_copy.
+
+        A window staged in a host buffer (a tensor: the block-major
+        amplitudes that _parse_ahead parsed into it) crosses as its c real
+        rows alone, plane by plane and without blocking where the buffer
+        is pinned; the device window's pad rows are zeroed on the device
+        (pipeline/pad)."""
+        device = device or self.device
+        if isinstance(amps, torch.Tensor):
+            src = amps
+            out = torch.empty((3, w) + tuple(src.shape[2:]), dtype=src.dtype,
+                              device=device)
+            self._count_copy("h2d", [src], c, c)
+            if c < w:
+                with self.profiler.time("pipeline/pad"):
+                    for p in range(3):  # contiguous, so one vectorized fill
+                        out[p, c:].zero_()
+            with self.profiler.time("device/put"):
+                for p in range(3):
+                    out[p, :c].copy_(src[p], non_blocking=True)
+            return out
         tag = amps[0] if isinstance(amps, tuple) else None
         arrays = list(amps[1:]) if tag else [amps]
         if c < w:
@@ -327,8 +385,7 @@ class DecodePipeline:
         host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
         self._count_copy("h2d", host, c, w)
         with self.profiler.time("device/put"):
-            put = [t.to(device or self.device, non_blocking=True)
-                   for t in host]
+            put = [t.to(device, non_blocking=True) for t in host]
         return (tag, *put) if tag else put[0]
 
     def _count_copy(self, way: str, host, c: int, rows: int) -> None:
@@ -342,14 +399,36 @@ class DecodePipeline:
         self.profiler.add_size(f"copy/{way}_pad_bytes",
                                nbytes * (rows - c) // rows)
 
+    def _stage_out(self, frames: torch.Tensor, c: int) -> _Landed:
+        """Queue the D2H of a window's c frames into a host buffer sized
+        for the whole window (so that every window of a geometry asks the
+        allocator for one size) and return them as _Landed.  Probes:
+        pipeline/slot_wait, the buffer's allocation; output/transfer, the
+        enqueue; the counters of _count_copy, no pad."""
+        with self.profiler.time("pipeline/slot_wait"):
+            buf = self._host_buffer(frames.numel(), frames.dtype)
+        rows = buf[:c * frames[0].numel()].view((c,) + tuple(frames.shape[1:]))
+        self._count_copy("d2h", [rows], c, c)
+        event = None
+        with self.profiler.time("output/transfer"):
+            rows.copy_(frames[:c], non_blocking=True)
+            if frames.is_cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(frames.device))
+        return _Landed(rows, event)
+
     # ----- Full pipeline ------------------------------------------------
 
     def warmup(self, width: int, height: int) -> None:
         """Build the kernels (first use) and run one zero window through
         the step in the configured layout and then block-major, the runtime
         fallback of both other layouts, so that no first window pays a
-        build or launch set-up.  With a mesh: one window in the mesh's one
-        layout on each distinct device of the mesh."""
+        build or launch set-up.  On one device where block-major is the
+        configured layout, that window is staged, one row short, and
+        drained, so that the staged copies, the pad and the raster run
+        once; on CUDA, torch's pinned-block cache first gets the host
+        buffers a decode keeps in flight.  With a mesh: one window in the
+        mesh's one layout on each distinct device of the mesh."""
         bh, bw = height // 8, width // 8
         nb = bh * bw
         w = self.config.frames_per_batch
@@ -359,6 +438,7 @@ class DecodePipeline:
         bm = np.zeros((3, w, nb, 64), np.int16)
         cm = ("cm", np.zeros((3, w, bh // CM_FOLD, 64, CM_FOLD * bw),
                              np.int16))
+        staged = self.mesh is None and self._stages()
         if self.mesh is not None:
             # The mesh path feeds one layout and never packs int8.
             windows = [(cm, "cm") if self._mesh_fmt() == "cm" else (bm, "bm")]
@@ -370,7 +450,8 @@ class DecodePipeline:
                                  np.zeros((3, w, nb, 64), np.int8)), "bm"))
             elif self._want_cm():
                 windows.append((cm, "cm"))
-            windows.append((bm, "bm"))
+            if not staged:
+                windows.append((bm, "bm"))
             devices = [self.device]
 
         def run(dev, amps, layout):
@@ -380,59 +461,110 @@ class DecodePipeline:
         for dev in devices:
             for amps, layout in windows:
                 _on(dev, run, dev, amps, layout)
+        if staged:
+            cfg = self.config
+            bufs = []
+            if self.device.type == "cuda":
+                # What decode() holds at once: its parses ahead, the window
+                # being put and the one before it, whose copy may still run;
+                # the output ring, the window being drained and the one
+                # drained before it, which decode()'s loop still holds.
+                bufs = [self._host_buffer(bm.size, torch.int16)
+                        for _ in range(max(cfg.prefetch_batches, 1) + 4)]
+                bufs += [self._host_buffer(w * width * height, torch.int32)
+                         for _ in range(max(1, cfg.num_output_buffers) + 2)]
+            del bufs  # dropped into torch's cache of pinned blocks
+            c = max(w - 1, 1)
+            amps = self._host_buffer(bm.size, torch.int16)
+            amps = amps[:3 * c * nb * 64].view(3, c, nb, 64).zero_()
+            for _, _, frames in self._dispatch(
+                    iter([(0, c, seg[:c], amps)]), bh, bw, carry_layout="bm",
+                    scale=1, to_host=True):
+                self._host_frames(frames, bh, bw, c)
+        for dev in devices:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
+    def _stages(self) -> bool:
+        """Whether this pipeline's windows parse into host staging buffers:
+        where block-major is the configured layout (the cm and int8 native
+        parses make their own arrays)."""
+        return not (self.config.pack_i8 or self._want_cm())
+
     def _window_loop(self, jobs, parse, blocks_h: int, blocks_w: int, *,
                      carry_layout: str, scale: int, max_inflight: int,
-                     workers: int | None, latency_first: bool = False,
+                     workers: int | None, to_host: bool,
+                     latency_first: bool = False,
                      halt: Callable[[], bool] | None = None):
         """The window loop of decode() and decode_streams(): the parse
         look-ahead (_parse_ahead) feeding the device loop (_dispatch).
 
         jobs: (key, count, seg) per window, seg the (count,) segment-start
-        mask; parse(job) returns the window's parse result.  At most
+        mask; parse(job, out=None) returns the window's parse result,
+        written into the host staging buffer `out` where it can.  At most
         max_inflight parses run ahead of the device on `workers` threads.
-        Yields (key, count, frames) as _dispatch releases them.
+        Yields (key, count, frames) as _dispatch releases them; to_host:
+        the caller drains every window to the host.
         """
+        numel = 0
+        if self._stages():
+            numel = 3 * self.config.frames_per_batch * blocks_h * blocks_w * 64
         parsed = self._parse_ahead(jobs, parse, max_inflight, workers,
-                                   latency_first)
+                                   latency_first, numel)
         try:
             yield from self._dispatch(
                 parsed, blocks_h, blocks_w, carry_layout=carry_layout,
                 scale=scale, latency_first=latency_first, halt=halt,
+                to_host=to_host,
             )
         finally:
             parsed.close()
 
     def _parse_ahead(self, jobs, parse, max_inflight: int,
-                     workers: int | None, latency_first: bool):
+                     workers: int | None, latency_first: bool,
+                     numel: int = 0):
         """Yield (key, count, seg, parse result) per job, in order, with up
         to max_inflight parses running ahead on a thread pool (only the
         first one until it is taken, with latency_first).  The probe
-        pipeline/parse_wait times the caller's wait for each parse."""
+        pipeline/parse_wait times the caller's wait for each parse.
+
+        parse(job, out): with numel, out is a fresh host buffer of numel
+        int16 elements (_host_buffer; probe pipeline/slot_wait, its
+        allocation), and a result that lies at its start is yielded as a
+        tensor view of it, for _put_window's staged copy; else parse(job).
+        The submitted parse holds its buffer, so a parse that close()
+        cannot stop writes memory that nothing else is handed."""
         todo = iter(jobs)
         ex = ThreadPoolExecutor(max_workers=workers)
         futs: collections.deque = collections.deque()
 
         def submit(n: int) -> None:
             for job in itertools.islice(todo, n):
-                futs.append((job, ex.submit(parse, job)))
+                buf = None
+                if numel:
+                    with self.profiler.time("pipeline/slot_wait"):
+                        buf = self._host_buffer(numel, torch.int16)
+                args = (job,) if buf is None else (job, buf.numpy())
+                futs.append((job, buf, ex.submit(parse, *args)))
 
         try:
             submit(1 if latency_first else max_inflight)
             while futs:
-                (key, c, seg_c), fut = futs.popleft()
+                (key, c, seg_c), buf, fut = futs.popleft()
                 with self.profiler.time("pipeline/parse_wait"):
                     amps = fut.result()
                 submit(max_inflight - len(futs))
+                if (buf is not None and isinstance(amps, np.ndarray)
+                        and amps.ctypes.data == buf.data_ptr()):
+                    amps = buf[:amps.size].view(amps.shape)
                 yield key, c, seg_c, amps
         finally:
             ex.shutdown(wait=False, cancel_futures=True)
 
     def _dispatch(self, parsed, blocks_h: int, blocks_w: int, *,
                   carry_layout: str, scale: int, latency_first: bool = False,
-                  halt: Callable[[], bool] | None = None):
+                  halt: Callable[[], bool] | None = None,
+                  to_host: bool = False):
         """The device half of every window loop (decode, decode_streams,
         runtime.live's decode_live).
 
@@ -444,6 +576,10 @@ class DecodePipeline:
         with latency_first the first window is released before any later
         one is taken.  halt, checked before each window is taken, ends the
         loop, and what was dispatched is still yielded.
+
+        to_host: the caller drains every window to the host, so each
+        window's D2H is queued into a host buffer right after its step
+        (_stage_out) and the frames are yielded as _Landed.
         """
         cfg = self.config
         w = cfg.frames_per_batch
@@ -469,6 +605,8 @@ class DecodePipeline:
                                  carry)
             if downscale is not None:
                 frames = downscale(frames)
+            if to_host:
+                frames = self._stage_out(frames, c)
             pending.append((key, c, frames))
             keep = 0 if latency_first and first else ring
             first = False
@@ -535,9 +673,10 @@ class DecodePipeline:
             jobs.append((s, c, index.is_iframe[s:s + c]))
         want_cm = self._want_cm()
 
-        def parse(job):
+        def parse(job, out=None):
             s, c, _ = job
-            return self.parse_window(data, index, s, c, cfg.pack_i8, want_cm)
+            return self.parse_window(data, index, s, c, cfg.pack_i8, want_cm,
+                                     out=out)
 
         # Parse look-ahead: at most max_inflight windows parse ahead of the
         # device (a parsed 1080p window holds ~250 MB of int16 amplitudes).
@@ -545,6 +684,7 @@ class DecodePipeline:
             jobs, parse, bh, bw, carry_layout="cm" if want_cm else "bm",
             scale=scale, max_inflight=max(cfg.prefetch_batches, 1) + 2,
             workers=cfg.parse_workers or None, latency_first=latency_first,
+            to_host=not device_resident,
         )
         try:
             for item in wins:
@@ -733,6 +873,7 @@ class DecodePipeline:
                     f"{hdr.width}x{hdr.height})"
                 )
         bh, bw = hdr.blocks_h, hdr.blocks_w
+        nb = bh * bw
         w = cfg.frames_per_batch
         want_cm = self._want_cm()
         entries = [
@@ -748,7 +889,7 @@ class DecodePipeline:
                             for si, fi in ents])
             jobs.append((ents, len(ents), seg))
 
-        def parse(job):
+        def parse(job, out=None):
             # Per-stream runs of this window; frame indices need not be
             # contiguous (iframes_only), so parse_window takes selections.
             runs: list[tuple[int, list[int]]] = []
@@ -759,21 +900,24 @@ class DecodePipeline:
                     runs.append((si, [fi]))
             if len(runs) > 1:
                 # Mixed layouts cannot concatenate: a seam parses block-major.
+                c = job[1]
                 return np.concatenate([
                     self.parse_window(datas[si], indices[si], 0, 0,
                                       frames=np.asarray(fis))
                     for si, fis in runs
-                ], axis=1)
+                ], axis=1, out=None if out is None
+                    else out[:3 * c * nb * 64].reshape(3, c, nb, 64))
             si, fis = runs[0]
             return self.parse_window(datas[si], indices[si], 0, 0,
                                      cfg.pack_i8, want_cm,
-                                     frames=np.asarray(fis))
+                                     frames=np.asarray(fis), out=out)
 
         # One parse worker (the native parse is parallel inside) and
         # prefetch_batches windows of look-ahead.
         wins = self._window_loop(
             jobs, parse, bh, bw, carry_layout="bm", scale=scale,
             max_inflight=max(1, cfg.prefetch_batches), workers=1, halt=stop,
+            to_host=True,
         )
         try:
             for ents, c, frames in wins:
@@ -813,12 +957,30 @@ class DecodePipeline:
 
     def _host_frames(self, frames, blocks_h: int, blocks_w: int,
                      count: int) -> np.ndarray:
-        """A window's device frames -> host raster frames (rows beyond the
-        window's count included).  Probes: output/wait, the wait for the
-        work queued ahead of the copy (on CUDA a synchronize of the current
-        stream, which the in-order copy would wait for anyway; on the CPU
-        nothing); output/transfer, the D2H alone; output/raster; and the
-        counters of _count_copy, the rows beyond count as pad."""
+        """A window's frames -> host raster frames.
+
+        Landed frames (_Landed, the window's count frames in a host
+        buffer): output/wait waits for their copy's event, output/raster
+        rasters them into a fresh array (or copies them out where they are
+        raster already: nothing delivered may hold a staging buffer, whose
+        pinned block torch hands out again once it is dropped).
+
+        Device frames, rows beyond the window's count included: output/wait,
+        the wait for the work queued ahead of the copy (on CUDA a
+        synchronize of the current stream, which the in-order copy would
+        wait for anyway; on the CPU nothing); output/transfer, the D2H
+        alone; output/raster; and the counters of _count_copy, the rows
+        beyond count as pad."""
+        if isinstance(frames, _Landed):
+            with self.profiler.time("output/wait"):
+                if frames.event is not None:
+                    frames.event.synchronize()
+            host = frames.rows.numpy()
+            with self.profiler.time("output/raster"):
+                out = self._to_raster(host, blocks_h, blocks_w)
+                if np.may_share_memory(out, host):
+                    out = out.copy()
+            return out
         with self.profiler.time("output/wait"):
             if frames.is_cuda:
                 torch.cuda.current_stream(frames.device).synchronize()
