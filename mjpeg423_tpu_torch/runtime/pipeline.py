@@ -571,10 +571,11 @@ class DecodePipeline:
         parsed: an iterator of (key, count, seg, parse result); it is
         advanced only after the previous window was dispatched.  Each window
         switches the carry to its parse's layout if needed, is padded and
-        put on the device, runs the step (and the downscale) and joins the
-        output ring.  Yields (key, count, frames) as the ring releases them;
-        with latency_first the first window is released before any later
-        one is taken.  halt, checked before each window is taken, ends the
+        put on the device, runs the step (and the downscale, probe
+        pipeline/downscale: its launch on CUDA) and joins the output ring.
+        Yields (key, count, frames) as the ring releases them; with
+        latency_first the first window is released before any later one is
+        taken.  halt, checked before each window is taken, ends the
         loop, and what was dispatched is still yielded.
 
         to_host: the caller drains every window to the host, so each
@@ -604,7 +605,8 @@ class DecodePipeline:
             frames, carry = step(self._put_window(amps, c, w), self._put(seg),
                                  carry)
             if downscale is not None:
-                frames = downscale(frames)
+                with self.profiler.time("pipeline/downscale"):
+                    frames = downscale(frames)
             if to_host:
                 frames = self._stage_out(frames, c)
             pending.append((key, c, frames))
@@ -854,6 +856,11 @@ class DecodePipeline:
         parse block-major and windows inside one stream in the configured
         layout, and stop ends the stream before the next dispatch.
         Single-device: a mesh pipeline raises.
+
+        Each parsed window adds to the counters streams/windows (1),
+        streams/runs (its per-stream runs) and, where it has more than one
+        run, streams/seam_windows (1); the probe parse/seam_join times the
+        join of a seam window's runs into its staging buffer.
         """
         if self.mesh is not None:
             raise ValueError(
@@ -898,15 +905,21 @@ class DecodePipeline:
                     runs[-1][1].append(fi)
                 else:
                     runs.append((si, [fi]))
+            prof = self.profiler
+            prof.add_size("streams/windows", 1)
+            prof.add_size("streams/runs", len(runs))
             if len(runs) > 1:
-                # Mixed layouts cannot concatenate: a seam parses block-major.
+                # Mixed layouts cannot concatenate: a seam parses block-major,
+                # run by run, and the runs are joined into one window.
+                prof.add_size("streams/seam_windows", 1)
+                parts = [self.parse_window(datas[si], indices[si], 0, 0,
+                                           frames=np.asarray(fis))
+                         for si, fis in runs]
                 c = job[1]
-                return np.concatenate([
-                    self.parse_window(datas[si], indices[si], 0, 0,
-                                      frames=np.asarray(fis))
-                    for si, fis in runs
-                ], axis=1, out=None if out is None
-                    else out[:3 * c * nb * 64].reshape(3, c, nb, 64))
+                with prof.time("parse/seam_join"):
+                    return np.concatenate(
+                        parts, axis=1, out=None if out is None
+                        else out[:3 * c * nb * 64].reshape(3, c, nb, 64))
             si, fis = runs[0]
             return self.parse_window(datas[si], indices[si], 0, 0,
                                      cfg.pack_i8, want_cm,
