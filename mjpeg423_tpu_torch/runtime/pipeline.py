@@ -68,7 +68,8 @@ from ..core import format as fmt
 from ..native import centropy
 from ..ops import resolve_device, scale as _scale, transform_fused
 from ..ops.parse import (  # CM_FOLD is re-exported: the step folds by it
-    CM_FOLD, parse_block_major, parse_coef_major, plane_spans,
+    CM_FOLD, gather_spans, parse_block_major, parse_coef_major, parse_spans,
+    plane_spans,
 )
 from ..parallel.mesh import BLOCK_AXIS, DATA_AXIS, _on, data_devices
 from ..parallel.multihost import partition_gops
@@ -857,10 +858,14 @@ class DecodePipeline:
         layout, and stop ends the stream before the next dispatch.
         Single-device: a mesh pipeline raises.
 
+        A seam window (frames of more than one stream) gathers all its
+        plane bitstreams into one scratch buffer and parses them in one
+        call (parse_spans) straight into its staging buffer.
+
         Each parsed window adds to the counters streams/windows (1),
         streams/runs (its per-stream runs) and, where it has more than one
-        run, streams/seam_windows (1); the probe parse/seam_join times the
-        join of a seam window's runs into its staging buffer.
+        run, streams/seam_windows (1); the probe parse/seam_join times a
+        seam window's gather, and parse/window its one parse.
         """
         if self.mesh is not None:
             raise ValueError(
@@ -896,11 +901,16 @@ class DecodePipeline:
                             for si, fi in ents])
             jobs.append((ents, len(ents), seg))
 
+        # The one parse worker's scratch for a seam window's bitstreams.
+        scratch = np.empty(0, np.uint8)
+
         def parse(job, out=None):
+            nonlocal scratch
             # Per-stream runs of this window; frame indices need not be
             # contiguous (iframes_only), so parse_window takes selections.
+            ents, c, _ = job
             runs: list[tuple[int, list[int]]] = []
-            for si, fi in job[0]:
+            for si, fi in ents:
                 if runs and runs[-1][0] == si:
                     runs[-1][1].append(fi)
                 else:
@@ -909,17 +919,18 @@ class DecodePipeline:
             prof.add_size("streams/windows", 1)
             prof.add_size("streams/runs", len(runs))
             if len(runs) > 1:
-                # Mixed layouts cannot concatenate: a seam parses block-major,
-                # run by run, and the runs are joined into one window.
+                # A seam parses block-major, whatever the configured layout.
                 prof.add_size("streams/seam_windows", 1)
-                parts = [self.parse_window(datas[si], indices[si], 0, 0,
-                                           frames=np.asarray(fis))
-                         for si, fis in runs]
-                c = job[1]
                 with prof.time("parse/seam_join"):
-                    return np.concatenate(
-                        parts, axis=1, out=None if out is None
-                        else out[:3 * c * nb * 64].reshape(3, c, nb, 64))
+                    scratch, offs, lens, is_p = gather_spans(
+                        datas, indices, ents, scratch)
+                with prof.time("parse/window"):
+                    amps = parse_spans(
+                        scratch, offs, lens, is_p, nb,
+                        native=self._native_parse(),
+                        out=None if out is None
+                        else out[:3 * c * nb * 64].reshape(3 * c, nb, 64))
+                return amps.reshape(3, c, nb, 64)
             si, fis = runs[0]
             return self.parse_window(datas[si], indices[si], 0, 0,
                                      cfg.pack_i8, want_cm,

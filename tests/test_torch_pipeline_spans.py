@@ -95,8 +95,8 @@ def test_window_probes_and_copy_counters(clip, layout, resident):
 def test_stream_batches_count_their_pad(clip):
     """decode_streams: two clips share windows of 7, 46 frames in 7
     windows, the last of 4 frames, and a seam window; every window is
-    staged, the seam's parts concatenated into its buffer, so the last
-    window's 3 pad rows cross neither way."""
+    staged, the seam's plane bitstreams decoded in one call into its
+    buffer, so the last window's 3 pad rows cross neither way."""
     prof = Profiler()
     pipe = DecodePipeline(DecodeConfig(frames_per_batch=FPB), prof, device="cpu")
     out = pipe.decode_streams_arrays([clip[1], clip[1]])

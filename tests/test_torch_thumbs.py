@@ -140,7 +140,8 @@ def test_no_downscale_probe_at_full_size(archives):
 @pytest.mark.cuda
 def test_1080p_batch_of_16_archives_on_the_card(cuda):
     """Four distinct 1080p archives, each four times in a seeded order, on
-    the card: every thumbnail equals h100bench/thumbs_ref.py's."""
+    the card: every thumbnail equals h100bench/thumbs_ref.py's, and every
+    seam window was gathered once (parse/seam_join)."""
     from h100bench import content, mjpeg, thumbs_ref
 
     datas = []
@@ -161,5 +162,6 @@ def test_1080p_batch_of_16_archives_on_the_card(cuda):
         assert thumb.shape == (270, 480)
         want = refs[order[si]][fi].cpu().numpy()
         np.testing.assert_array_equal(thumb.astype(np.int64), want)
-    assert prof.report()["streams/seam_windows"]["total"] > 0
+    rep = prof.report()
+    assert rep["parse/seam_join"]["count"] == rep["streams/seam_windows"]["total"] > 0
     torch.cuda.synchronize()
