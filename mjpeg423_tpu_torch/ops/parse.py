@@ -121,16 +121,19 @@ def parse_block_major(
 
 def parse_coef_major(
     data: bytes, index: fmt.FrameIndex, fsel: np.ndarray,
-    fold: int = CM_FOLD,
+    fold: int = CM_FOLD, out: np.ndarray | None = None,
 ) -> np.ndarray | None:
     """Frames `fsel` -> (3, len(fsel), bh/fold, 64, fold*bw) int16, the
     coefficient-major layout K2 reads, straight from the native decoder;
-    None where it cannot emit it."""
+    None where it cannot emit it.  out: a C-contiguous int16 array of that
+    shape that the result is written into; the result is then a view of
+    it."""
     bh, bw = index.header.blocks_h, index.header.blocks_w
+    shape = (3, len(fsel), bh // fold, 64, fold * bw)
     cm = centropy.decode_batch_cm(
         data, *plane_spans(index, fsel), index.header.blocks_per_plane,
-        fold * bw,
+        fold * bw, out=None if out is None else out.reshape((-1,) + shape[2:]),
     )
     if cm is None:
         return None
-    return cm.reshape(3, len(fsel), bh // fold, 64, fold * bw)
+    return cm.reshape(shape)

@@ -30,7 +30,8 @@ Pipeline shape (same three stages as DecodePipeline.decode):
       contiguous buffers (the core1 analog; backpressure propagates to the
       source through the bounded queue: a slow consumer stalls the reads,
       which stalls the pipe writer);
-  parse pool    — native batch entropy decode per window, handed on in
+  parse pool    — native batch entropy decode per window, each into a
+      staging block of its own (DecodePipeline._staged), handed on in
       order by a deliverer thread;
   consumer      — the SAME device step with coefficient-state carry.
 
@@ -438,6 +439,11 @@ def decode_live(
     stop_flag = threading.Event()
     ex = ThreadPoolExecutor(max_workers=cfg.parse_workers or None)
 
+    def parse(job, block):
+        wbuf, index, c = job
+        return pipe.parse_window(wbuf, index, 0, c, cfg.pack_i8, want_cm,
+                                 out=block)
+
     def _put_or_drop(q_, item) -> bool:
         """Put unless the consumer has abandoned the decode (stop set).
         A plain blocking put can deadlock teardown: a data/sentinel put
@@ -463,10 +469,8 @@ def decode_live(
                     src, w, resync=resync, recovery=recovery):
                 if stop_flag.is_set():
                     return
-                fut = ex.submit(
-                    pipe.parse_window, wbuf, index, 0, c,
-                    cfg.pack_i8, want_cm,
-                )
+                fut = ex.submit(pipe._staged, parse, (wbuf, index, c),
+                                index.header.blocks_per_plane)
                 if not _put_or_drop(futs_q, (s, c, index, fut)):
                     fut.cancel()
                     return

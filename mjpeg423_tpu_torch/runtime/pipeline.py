@@ -6,10 +6,10 @@ mjpeg423_tpu/runtime/pipeline.py's.  Its host half is copied from that file
 at commit bfc8537 (DecodedWindow, RecoveryLog, _StageError, parse_window,
 _put_window, decode_iframes, the *_array(s) forms, _find_corrupt_frame,
 decode_resilient): container index, native entropy parse (block-major,
-coefficient-major and int8-packed), window padding, reassembly and the
-GOP-skip recovery.  What touched jax there is torch here: putting arrays on
-the device, the window step, the carry layouts, the downscale, draining
-frames back to the host and warmup.
+coefficient-major and int8-packed), reassembly and the GOP-skip recovery.
+What touched jax there is torch here: putting arrays on the device, the
+window step, the carry layouts, the downscale, draining frames back to the
+host and warmup.
 
   Stage A (host threads)  entropy parse: the native C batch decoder over
       (frames x planes) byte ranges indexed straight into the container
@@ -21,20 +21,22 @@ frames back to the host and warmup.
   Stage C (host)          device->host transfer, blocked->raster, delivery.
 
 decode() and decode_streams() share one window loop (_window_loop): parse
-look-ahead on a thread pool (_parse_ahead), then the device loop (_dispatch):
-the carry-layout switch, put, step, downscale and the output ring.
-runtime/live.py's decode_live feeds _dispatch from its own reader threads.
+look-ahead on a thread pool (_parse_ahead), then the device loop
+(_dispatch).  runtime/live.py's decode_live feeds _dispatch from its own
+reader threads.  Every window of every device loop, the mesh's too, runs
+one routine (_window_routine): the carry-layout switch, put, step,
+downscale and, for a window drained to the host, its D2H.
 
-Both copies of a window go through host staging buffers, pinned on CUDA
-(_host_buffer): the look-ahead parses each window straight into one, the
-put copies only its real rows, and a window that is drained to the host
-lands in one right after its step.  Neither copy blocks the decoding
-thread.  A buffer is dropped once nothing holds it; torch's caching host
-allocator reuses its pinned block only after the copy that read or filled
-it has completed, and a parse that close() cannot stop holds its own
-buffer until it ends.  A parse result that is a plain array (decode_live's
-readers, the cm and i8 layouts, the mesh loop) takes the pageable copies
-instead.
+Both copies of every window go through host staging buffers, pinned on
+CUDA (_host_buffer).  Every parse, in every layout and from every
+producer, writes straight into a staging block of its own (_staged); the
+put copies only the window's real rows from it, the device window's pad
+rows zeroed on the device; and a window that is drained to the host lands
+in another buffer right after its step (_stage_out).  Neither copy blocks
+the decoding thread.  A buffer is dropped once nothing holds it; torch's
+caching host allocator reuses its pinned block only after the copy that
+read or filled it has completed, and a parse that close() cannot stop
+holds its own block until it ends.
 
 Every window runs one of three kernels, chosen by the layout its parse
 produced (ops/transform_fused -> csrc/decode_window.cu): block-major K1
@@ -49,15 +51,17 @@ With mesh= the pipeline shards a stream's GOPs over the mesh's "data" axis
 (_decode_mesh): each data shard owns one contiguous GOP-aligned partition
 and walks it window by window with its own carry on its own device.  One
 process drives every shard: the parse look-ahead (_parse_ahead) parses one
-super-window (a window of every partition) per job, and the mesh device
-loop (_dispatch_mesh) runs each shard's window with that shard's device
-current, so its put, kernel and carry stay on its card.
+super-window (a window of every partition, each into its own block) per
+job, and the mesh device loop (_dispatch_mesh) runs each shard's window
+with that shard's device current, so its put, kernel, carry and landing
+stay on its card.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import itertools
+import math
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Sequence
 
@@ -129,6 +133,39 @@ class _Landed:
 
     rows: torch.Tensor
     event: object
+
+
+@dataclasses.dataclass
+class _Lane:
+    """One device of a window loop and its carry, in the layout of the last
+    window it ran ("bm" or "cm")."""
+
+    device: torch.device
+    layout: str
+    carry: torch.Tensor
+
+
+def _views(block: torch.Tensor, layout: str, count: int, blocks_h: int,
+           blocks_w: int):
+    """A parse result of `count` frames in `layout` ("bm", "cm" or "i8"),
+    as tensors carved one after another from the start of the flat uint8
+    host block: block-major (3, count, B, 64) int16; ("cm", (3, count,
+    bh/k, 64, k*bw) int16) at the fold k = CM_FOLD; or ("i8", dc (3, count,
+    B) int16, ac (3, count, B, 64) int8).  None needs more than the
+    block-major bytes."""
+    nb = blocks_h * blocks_w
+    shapes = {
+        "bm": [((3, count, nb, 64), torch.int16)],
+        "cm": [((3, count, blocks_h // CM_FOLD, 64, CM_FOLD * blocks_w),
+                torch.int16)],
+        "i8": [((3, count, nb), torch.int16), ((3, count, nb, 64), torch.int8)],
+    }[layout]
+    views, off = [], 0
+    for shape, dtype in shapes:
+        n = math.prod(shape) * dtype.itemsize
+        views.append(block[off:off + n].view(dtype).view(shape))
+        off += n
+    return views[0] if layout == "bm" else (layout, *views)
 
 
 def _device_step_factory(blocks_h: int, blocks_w: int, raster_on_device: bool):
@@ -235,97 +272,100 @@ class DecodePipeline:
         want_packed: bool = False,
         want_cm: bool = False,
         frames: np.ndarray | None = None,
-        out: np.ndarray | None = None,
+        out: torch.Tensor | None = None,
     ):
-        """Entropy-decode frames [start, start+count).
+        """Entropy-decode frames [start, start+count) into `out`.
 
         frames: an explicit array of frame indices overrides start/count —
         the windows need not be contiguous (decode_iframes batches GOP
         heads this way).
 
-        Returns (3, count, B, 64) int16 amplitudes; or, with want_cm, the
-        coefficient-major ("cm", (3, count, bh/k, 64, k*bw) int16) at the
-        port's fold k = CM_FOLD; or — when want_packed and every AC
-        amplitude fits int8 — the compressed ("i8", dc (3, count, B) int16,
-        ac (3, count, B, 64) int8) consumed by the i8 kernel (half the
-        host->device bytes; the native decoder emits it directly and
-        signals fallback when a stream needs the full range).
-
-        out: a flat int16 buffer of at least 3 * count * B * 64 elements (a
-        host staging buffer) that a block-major result is written into and
-        is a view of; the other layouts leave it untouched.
+        out: a flat uint8 host tensor of at least 3 * count * B * 64 * 2
+        bytes (a staging block, _staged) that the result is written into,
+        from its start; without it, a plain tensor of that size.  The
+        result is tensor views of it (_views): (3, count, B, 64) int16
+        amplitudes; or, with want_cm, the coefficient-major ("cm", (3,
+        count, bh/k, 64, k*bw) int16) at the port's fold k = CM_FOLD; or —
+        when want_packed and every AC amplitude fits int8 — the compressed
+        ("i8", dc (3, count, B) int16, ac (3, count, B, 64) int8) consumed
+        by the i8 kernel (half the host->device bytes; the native decoder
+        emits it directly and signals fallback when a stream needs the full
+        range, and the window is then parsed block-major into the same
+        block).
         """
         if frames is None:
             fsel = np.arange(start, start + count)
         else:
             fsel = np.asarray(frames)
             count = len(fsel)
-        nb = index.header.blocks_per_plane
+        hdr = index.header
+        bh, bw, nb = hdr.blocks_h, hdr.blocks_w, hdr.blocks_per_plane
+        if out is None:
+            out = torch.empty(3 * count * nb * 64 * 2, dtype=torch.uint8)
+        amps = _views(out, "bm", count, bh, bw)
         spec = self.config.spec_segments
         with self.profiler.time("parse/window"):
             if spec > 1 and centropy.native_available():
                 # Latency mode: speculative intra-plane parallelism (each
                 # plane split across `spec` workers; see centropy.c).
-                out = np.empty((3, count, nb, 64), dtype=np.int16)
+                planes = amps.numpy()
                 for p in range(3):
                     for i in range(count):
                         fi = int(fsel[i])
                         o = int(index.plane_off[p, fi])
                         l = int(index.plane_len[p, fi])
-                        out[p, i] = centropy.decode_plane_spec(
+                        planes[p, i] = centropy.decode_plane_spec(
                             data[o:o + l], nb,
                             bool(index.frame_type[fi]), spec,
                         )
                 self.profiler.probe("parse/spec_windows").add(1)
-                return out
+                return amps
             native = self._native_parse()
             if native and want_cm:
-                cm = parse_coef_major(data, index, fsel)
-                if cm is not None:
+                cm = _views(out, "cm", count, bh, bw)
+                if parse_coef_major(data, index, fsel,
+                                    out=cm[1].numpy()) is not None:
                     self.profiler.probe("parse/cm_windows").add(1)
-                    return ("cm", cm)
+                    return cm
             if native and want_packed:
-                packed = centropy.decode_batch_i8(
-                    data, *plane_spans(index, fsel), nb
-                )
-                if packed is not None:
-                    dc, ac = packed
+                i8 = _views(out, "i8", count, bh, bw)
+                dc, ac = (a.numpy().reshape((3 * count,) + a.shape[2:])
+                          for a in i8[1:])
+                if centropy.decode_batch_i8(data, *plane_spans(index, fsel),
+                                            nb, out=(dc, ac)) is not None:
                     self.profiler.probe("parse/i8_windows").add(1)
-                    return (
-                        "i8",
-                        dc.reshape(3, count, nb),
-                        ac.reshape(3, count, nb, 64),
-                    )
-            return parse_block_major(data, index, fsel, native=native,
-                                     out=out)
+                    return i8
+            parse_block_major(data, index, fsel, native=native,
+                              out=out.view(torch.int16).numpy())
+            return amps
 
     # ----- Stage B: device step ----------------------------------------
-
-    def _use_pallas(self) -> bool:
-        return self.device.type == "cuda"
 
     def _get_step(self, blocks_h: int, blocks_w: int):
         return _device_step_factory(
             blocks_h, blocks_w, self.config.raster_on_device
         )
 
-    def _carry_cast(self, carry, to_tag, blocks_h, blocks_w, kk):
+    def _carry_cast(self, carry, to_tag, blocks_h, blocks_w):
         """The carry between block-major (3, B, 64) and coefficient-major
-        (3, bh/kk, 64, kk*bw), on its device.  Needed when parse_window
-        falls back to another layout mid-stream, so that resumed state
-        stays exact."""
+        (3, bh/k, 64, k*bw) at k = CM_FOLD, on its device.  Needed when
+        parse_window falls back to another layout mid-stream, so that
+        resumed state stays exact."""
         if to_tag == "cm":
-            return transform_fused.carry_to_cm(carry, blocks_h, blocks_w, kk)
-        return transform_fused.carry_from_cm(carry, blocks_h, blocks_w, kk)
+            return transform_fused.carry_to_cm(carry, blocks_h, blocks_w,
+                                               CM_FOLD)
+        return transform_fused.carry_from_cm(carry, blocks_h, blocks_w,
+                                             CM_FOLD)
 
-    def _zero_carry(self, layout: str, blocks_h: int, blocks_w: int,
-                    device: torch.device | None = None):
+    def _lane(self, device: torch.device, layout: str, blocks_h: int,
+              blocks_w: int) -> _Lane:
+        """A lane on `device` with a zero carry in `layout`."""
         if layout == "cm":
             shape = (3, blocks_h // CM_FOLD, 64, CM_FOLD * blocks_w)
         else:
             shape = (3, blocks_h * blocks_w, 64)
-        return torch.zeros(shape, dtype=torch.int16,
-                           device=device or self.device)
+        return _Lane(device, layout,
+                     torch.zeros(shape, dtype=torch.int16, device=device))
 
     def _to_raster(self, host: np.ndarray, blocks_h: int,
                    blocks_w: int) -> np.ndarray:
@@ -348,68 +388,53 @@ class DecodePipeline:
 
     def _put_window(self, amps, c: int, w: int,
                     device: torch.device | None = None):
-        """Pad a parsed window to the window length (zero deltas repeat
-        the last frame; padded rows are dropped at drain) and put it on
-        `device` (default: this pipeline's), preserving the parse layout
-        tag ("cm"/"i8"/block-major).  Every array of a parse result holds
-        the window's frames on axis 1.  Probes: pipeline/pad (short windows
-        only), device/put (the copy alone), and the counters of
-        _count_copy.
-
-        A window staged in a host buffer (a tensor: the block-major
-        amplitudes that _parse_ahead parsed into it) crosses as its c real
-        rows alone, plane by plane and without blocking where the buffer
-        is pinned; the device window's pad rows are zeroed on the device
-        (pipeline/pad)."""
+        """Put a staged parse result of c frames (_staged: every array of
+        it holds the window's frames on axis 1, in a host staging block) on
+        `device` (default: this pipeline's) as a window of w frames,
+        keeping its layout tag ("cm"/"i8"/block-major).  Each array crosses
+        as its c real rows alone, plane by plane and without blocking where
+        the block is pinned; the device window's pad rows are zeroed on the
+        device (zero deltas repeat the last frame; padded rows are dropped
+        at drain).  Probes: pipeline/pad (short windows only), device/put
+        (the copy alone), and the counters of _count_copy."""
         device = device or self.device
-        if isinstance(amps, torch.Tensor):
-            src = amps
-            out = torch.empty((3, w) + tuple(src.shape[2:]), dtype=src.dtype,
-                              device=device)
-            self._count_copy("h2d", [src], c, c)
-            if c < w:
-                with self.profiler.time("pipeline/pad"):
-                    for p in range(3):  # contiguous, so one vectorized fill
-                        out[p, c:].zero_()
-            with self.profiler.time("device/put"):
-                for p in range(3):
-                    out[p, :c].copy_(src[p], non_blocking=True)
-            return out
         tag = amps[0] if isinstance(amps, tuple) else None
-        arrays = list(amps[1:]) if tag else [amps]
+        host = list(amps[1:]) if tag else [amps]
+        put = [torch.empty((3, w) + tuple(a.shape[2:]), dtype=a.dtype,
+                           device=device) for a in host]
+        self._count_copy("h2d", host)
         if c < w:
             with self.profiler.time("pipeline/pad"):
-                for i, a in enumerate(arrays):
-                    pad = np.zeros(a.shape[:1] + (w,) + a.shape[2:], a.dtype)
-                    pad[:, :c] = a
-                    arrays[i] = pad
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        self._count_copy("h2d", host, c, w)
+                for t in put:
+                    for p in range(3):  # contiguous, so one vectorized fill
+                        t[p, c:].zero_()
         with self.profiler.time("device/put"):
-            put = [t.to(device, non_blocking=True) for t in host]
+            for t, a in zip(put, host):
+                for p in range(3):
+                    t[p, :c].copy_(a[p], non_blocking=True)
         return (tag, *put) if tag else put[0]
 
-    def _count_copy(self, way: str, host, c: int, rows: int) -> None:
+    def _count_copy(self, way: str, host) -> None:
         """Counters of one window's copy ("h2d" or "d2h") of the host
-        tensors `host`, whose `rows` frames beyond the first c are pad:
-        copy/<way>_bytes.pinned or .pageable (every byte, by the host
-        side's memory) and copy/<way>_pad_bytes (the pad's)."""
+        tensors `host`, the window's real rows: copy/<way>_bytes.pinned or
+        .pageable (every byte, by the host side's memory) and
+        copy/<way>_pad_bytes, which stays 0 (no pad row crosses; the
+        benchmark's copy_pad_share reads it)."""
         nbytes = sum(t.nbytes for t in host)
         kind = "pinned" if all(t.is_pinned() for t in host) else "pageable"
         self.profiler.add_size(f"copy/{way}_bytes.{kind}", nbytes)
-        self.profiler.add_size(f"copy/{way}_pad_bytes",
-                               nbytes * (rows - c) // rows)
+        self.profiler.add_size(f"copy/{way}_pad_bytes", 0)
 
     def _stage_out(self, frames: torch.Tensor, c: int) -> _Landed:
         """Queue the D2H of a window's c frames into a host buffer sized
         for the whole window (so that every window of a geometry asks the
         allocator for one size) and return them as _Landed.  Probes:
         pipeline/slot_wait, the buffer's allocation; output/transfer, the
-        enqueue; the counters of _count_copy, no pad."""
+        enqueue; the counters of _count_copy."""
         with self.profiler.time("pipeline/slot_wait"):
             buf = self._host_buffer(frames.numel(), frames.dtype)
         rows = buf[:c * frames[0].numel()].view((c,) + tuple(frames.shape[1:]))
-        self._count_copy("d2h", [rows], c, c)
+        self._count_copy("d2h", [rows])
         event = None
         with self.profiler.time("output/transfer"):
             rows.copy_(frames[:c], non_blocking=True)
@@ -421,76 +446,64 @@ class DecodePipeline:
     # ----- Full pipeline ------------------------------------------------
 
     def warmup(self, width: int, height: int) -> None:
-        """Build the kernels (first use) and run one zero window through
-        the step in the configured layout and then block-major, the runtime
-        fallback of both other layouts, so that no first window pays a
-        build or launch set-up.  On one device where block-major is the
-        configured layout, that window is staged, one row short, and
-        drained, so that the staged copies, the pad and the raster run
-        once; on CUDA, torch's pinned-block cache first gets the host
-        buffers a decode keeps in flight.  With a mesh: one window in the
-        mesh's one layout on each distinct device of the mesh."""
+        """Build the kernels (first use) and, on each distinct device, run
+        one staged zero window, one row short and drained, through the
+        window routine in the configured layout and then block-major, the
+        runtime fallback of both other layouts: the staged copies, the pad,
+        the step and the raster run once, so that no first window pays a
+        build or launch set-up.  On CUDA, torch's pinned-block cache first
+        gets the host buffers a decode keeps in flight, for each shard."""
+        cfg = self.config
         bh, bw = height // 8, width // 8
-        nb = bh * bw
-        w = self.config.frames_per_batch
-        seg = np.zeros(w, dtype=bool)
-        seg[0] = True
-        step = self._get_step(bh, bw)
-        bm = np.zeros((3, w, nb, 64), np.int16)
-        cm = ("cm", np.zeros((3, w, bh // CM_FOLD, 64, CM_FOLD * bw),
-                             np.int16))
-        staged = self.mesh is None and self._stages()
-        if self.mesh is not None:
-            # The mesh path feeds one layout and never packs int8.
-            windows = [(cm, "cm") if self._mesh_fmt() == "cm" else (bm, "bm")]
-            devices = list(dict.fromkeys(self._mesh_devices))
+        w = cfg.frames_per_batch
+        block = 3 * w * bh * bw * 64 * 2
+        if self.mesh is None:
+            shards = [self.device]
+            first = "i8" if cfg.pack_i8 else self.parse_layout()
         else:
-            windows = []
-            if self.config.pack_i8:
-                windows.append((("i8", np.zeros((3, w, nb), np.int16),
-                                 np.zeros((3, w, nb, 64), np.int8)), "bm"))
-            elif self._want_cm():
-                windows.append((cm, "cm"))
-            if not staged:
-                windows.append((bm, "bm"))
-            devices = [self.device]
-
-        def run(dev, amps, layout):
-            step(self._put_window(amps, w, w, dev), self._put(seg, dev),
-                 self._zero_carry(layout, bh, bw, dev))
-
-        for dev in devices:
-            for amps, layout in windows:
-                _on(dev, run, dev, amps, layout)
-        if staged:
-            cfg = self.config
-            bufs = []
-            if self.device.type == "cuda":
-                # What decode() holds at once: its parses ahead, the window
-                # being put and the one before it, whose copy may still run;
-                # the output ring, the window being drained and the one
-                # drained before it, which decode()'s loop still holds.
-                bufs = [self._host_buffer(bm.size, torch.int16)
-                        for _ in range(max(cfg.prefetch_batches, 1) + 4)]
-                bufs += [self._host_buffer(w * width * height, torch.int32)
-                         for _ in range(max(1, cfg.num_output_buffers) + 2)]
+            shards = self._mesh_devices
+            first = self._mesh_fmt()
+        if self.device.type == "cuda":
+            # What a decode holds at once, a shard: its parses ahead, the
+            # window being put and the one before it, whose copy may still
+            # run; the output ring, the window being drained and the one
+            # drained before it, which the loop still holds.
+            n = len(shards)
+            bufs = [self._host_buffer(block, torch.uint8)
+                    for _ in range(n * (max(cfg.prefetch_batches, 1) + 4))]
+            bufs += [self._host_buffer(w * width * height, torch.int32)
+                     for _ in range(n * (max(1, cfg.num_output_buffers) + 2))]
             del bufs  # dropped into torch's cache of pinned blocks
-            c = max(w - 1, 1)
-            amps = self._host_buffer(bm.size, torch.int16)
-            amps = amps[:3 * c * nb * 64].view(3, c, nb, 64).zero_()
-            for _, _, frames in self._dispatch(
-                    iter([(0, c, seg[:c], amps)]), bh, bw, carry_layout="bm",
-                    scale=1, to_host=True):
-                self._host_frames(frames, bh, bw, c)
+        run = self._window_routine(bh, bw, 1, to_host=True)
+        c = max(w - 1, 1)
+        seg = np.zeros(c, dtype=bool)
+        seg[0] = True
+        devices = list(dict.fromkeys(shards))
+        for dev in devices:
+            for layout in dict.fromkeys((first, "bm")):
+                amps = _views(self._host_buffer(block, torch.uint8).zero_(),
+                              layout, c, bh, bw)
+                lane = self._lane(dev, _layout(amps), bh, bw)
+                self._host_frames(_on(dev, run, lane, c, seg, amps), bh, bw)
         for dev in devices:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-    def _stages(self) -> bool:
-        """Whether this pipeline's windows parse into host staging buffers:
-        where block-major is the configured layout (the cm and int8 native
-        parses make their own arrays)."""
-        return not (self.config.pack_i8 or self._want_cm())
+    def _staged(self, parse, job, blocks_per_plane: int):
+        """parse(job, block) into a fresh host staging block: the one owner
+        of staging, which every producer of parse results calls.  The block
+        (_host_buffer; probe pipeline/slot_wait, its allocation) holds a
+        window of frames_per_batch frames of block-major int16 amplitudes,
+        3 * W * B * 64 * 2 bytes, which a result of any layout fits, and
+        parse returns its result as tensor views of it (parse_window(out=),
+        _views).  Those views hold the block for as long as the window's
+        copy needs it, and a parse that nothing waits for any more still
+        writes a block of its own."""
+        with self.profiler.time("pipeline/slot_wait"):
+            block = self._host_buffer(
+                3 * self.config.frames_per_batch * blocks_per_plane * 64 * 2,
+                torch.uint8)
+        return parse(job, block)
 
     def _window_loop(self, jobs, parse, blocks_h: int, blocks_w: int, *,
                      carry_layout: str, scale: int, max_inflight: int,
@@ -501,17 +514,16 @@ class DecodePipeline:
         look-ahead (_parse_ahead) feeding the device loop (_dispatch).
 
         jobs: (key, count, seg) per window, seg the (count,) segment-start
-        mask; parse(job, out=None) returns the window's parse result,
-        written into the host staging buffer `out` where it can.  At most
+        mask; parse(job, block) writes the window's parse result into the
+        host staging block `block` (_staged) and returns it.  At most
         max_inflight parses run ahead of the device on `workers` threads.
         Yields (key, count, frames) as _dispatch releases them; to_host:
         the caller drains every window to the host.
         """
-        numel = 0
-        if self._stages():
-            numel = 3 * self.config.frames_per_batch * blocks_h * blocks_w * 64
-        parsed = self._parse_ahead(jobs, parse, max_inflight, workers,
-                                   latency_first, numel)
+        nb = blocks_h * blocks_w
+        parsed = self._parse_ahead(
+            jobs, lambda job: self._staged(parse, job, nb), max_inflight,
+            workers, latency_first)
         try:
             yield from self._dispatch(
                 parsed, blocks_h, blocks_w, carry_layout=carry_layout,
@@ -522,74 +534,86 @@ class DecodePipeline:
             parsed.close()
 
     def _parse_ahead(self, jobs, parse, max_inflight: int,
-                     workers: int | None, latency_first: bool,
-                     numel: int = 0):
-        """Yield (key, count, seg, parse result) per job, in order, with up
+                     workers: int | None, latency_first: bool):
+        """Yield (key, count, seg, parse(job)) per job, in order, with up
         to max_inflight parses running ahead on a thread pool (only the
         first one until it is taken, with latency_first).  The probe
-        pipeline/parse_wait times the caller's wait for each parse.
-
-        parse(job, out): with numel, out is a fresh host buffer of numel
-        int16 elements (_host_buffer; probe pipeline/slot_wait, its
-        allocation), and a result that lies at its start is yielded as a
-        tensor view of it, for _put_window's staged copy; else parse(job).
-        The submitted parse holds its buffer, so a parse that close()
-        cannot stop writes memory that nothing else is handed."""
+        pipeline/parse_wait times the caller's wait for each parse."""
         todo = iter(jobs)
         ex = ThreadPoolExecutor(max_workers=workers)
         futs: collections.deque = collections.deque()
 
         def submit(n: int) -> None:
             for job in itertools.islice(todo, n):
-                buf = None
-                if numel:
-                    with self.profiler.time("pipeline/slot_wait"):
-                        buf = self._host_buffer(numel, torch.int16)
-                args = (job,) if buf is None else (job, buf.numpy())
-                futs.append((job, buf, ex.submit(parse, *args)))
+                futs.append((job, ex.submit(parse, job)))
 
         try:
             submit(1 if latency_first else max_inflight)
             while futs:
-                (key, c, seg_c), buf, fut = futs.popleft()
+                (key, c, seg_c), fut = futs.popleft()
                 with self.profiler.time("pipeline/parse_wait"):
                     amps = fut.result()
                 submit(max_inflight - len(futs))
-                if (buf is not None and isinstance(amps, np.ndarray)
-                        and amps.ctypes.data == buf.data_ptr()):
-                    amps = buf[:amps.size].view(amps.shape)
                 yield key, c, seg_c, amps
         finally:
             ex.shutdown(wait=False, cancel_futures=True)
+
+    def _window_routine(self, blocks_h: int, blocks_w: int, scale: int,
+                        to_host: bool):
+        """The routine every window of every device loop runs, as
+        run(lane, c, seg_c, amps) -> frames for a staged parse result amps
+        of c frames with its (c,) segment-start mask, on lane's device (a
+        mesh loop makes it current, parallel.mesh._on): the carry switched
+        to the parse's layout where that differs, the window put
+        (_put_window), the step, the downscale by `scale` (probe
+        pipeline/downscale: its launch on CUDA) and, with to_host, the D2H
+        into a host buffer (_stage_out), the frames then _Landed.  The new
+        carry stays in the lane."""
+        w = self.config.frames_per_batch
+        step = self._get_step(blocks_h, blocks_w)
+        downscale = (self._get_downscale(blocks_h, blocks_w, scale)
+                     if scale != 1 else None)
+
+        def run(lane: _Lane, c: int, seg_c, amps):
+            if _layout(amps) != lane.layout:
+                lane.layout = _layout(amps)
+                lane.carry = self._carry_cast(lane.carry, lane.layout,
+                                              blocks_h, blocks_w)
+            seg = np.zeros(w, dtype=bool)
+            seg[:c] = seg_c
+            frames, lane.carry = step(
+                self._put_window(amps, c, w, lane.device),
+                self._put(seg, lane.device), lane.carry)
+            if downscale is not None:
+                with self.profiler.time("pipeline/downscale"):
+                    frames = downscale(frames)
+            return self._stage_out(frames, c) if to_host else frames
+
+        return run
 
     def _dispatch(self, parsed, blocks_h: int, blocks_w: int, *,
                   carry_layout: str, scale: int, latency_first: bool = False,
                   halt: Callable[[], bool] | None = None,
                   to_host: bool = False):
-        """The device half of every window loop (decode, decode_streams,
-        runtime.live's decode_live).
+        """The device half of every single-device window loop (decode,
+        decode_streams, runtime.live's decode_live).
 
-        parsed: an iterator of (key, count, seg, parse result); it is
-        advanced only after the previous window was dispatched.  Each window
-        switches the carry to its parse's layout if needed, is padded and
-        put on the device, runs the step (and the downscale, probe
-        pipeline/downscale: its launch on CUDA) and joins the output ring.
-        Yields (key, count, frames) as the ring releases them; with
-        latency_first the first window is released before any later one is
-        taken.  halt, checked before each window is taken, ends the
-        loop, and what was dispatched is still yielded.
+        parsed: an iterator of (key, count, seg, staged parse result); it
+        is advanced only after the previous window was dispatched.  Each
+        window runs the window routine (_window_routine) on this
+        pipeline's device, starting from a zero carry in carry_layout, and
+        joins the output ring.  Yields (key, count, frames) as the ring
+        releases them; with latency_first the first window is released
+        before any later one is taken.  halt, checked before each window is
+        taken, ends the loop, and what was dispatched is still yielded.
 
         to_host: the caller drains every window to the host, so each
-        window's D2H is queued into a host buffer right after its step
-        (_stage_out) and the frames are yielded as _Landed.
+        window's D2H is queued right after its step and the frames are
+        yielded as _Landed.
         """
-        cfg = self.config
-        w = cfg.frames_per_batch
-        step = self._get_step(blocks_h, blocks_w)
-        downscale = (self._get_downscale(blocks_h, blocks_w, scale)
-                     if scale != 1 else None)
-        ring = max(1, cfg.num_output_buffers)
-        carry = self._zero_carry(carry_layout, blocks_h, blocks_w)
+        run = self._window_routine(blocks_h, blocks_w, scale, to_host)
+        lane = self._lane(self.device, carry_layout, blocks_h, blocks_w)
+        ring = max(1, self.config.num_output_buffers)
         pending: collections.deque = collections.deque()
         first = True
         while halt is None or not halt():
@@ -597,20 +621,7 @@ class DecodePipeline:
             if item is None:
                 break
             key, c, seg_c, amps = item
-            if _layout(amps) != carry_layout:
-                carry_layout = _layout(amps)
-                carry = self._carry_cast(carry, carry_layout, blocks_h,
-                                         blocks_w, CM_FOLD)
-            seg = np.zeros(w, dtype=bool)
-            seg[:c] = seg_c
-            frames, carry = step(self._put_window(amps, c, w), self._put(seg),
-                                 carry)
-            if downscale is not None:
-                with self.profiler.time("pipeline/downscale"):
-                    frames = downscale(frames)
-            if to_host:
-                frames = self._stage_out(frames, c)
-            pending.append((key, c, frames))
+            pending.append((key, c, run(lane, c, seg_c, amps)))
             keep = 0 if latency_first and first else ring
             first = False
             while len(pending) > keep:
@@ -676,10 +687,10 @@ class DecodePipeline:
             jobs.append((s, c, index.is_iframe[s:s + c]))
         want_cm = self._want_cm()
 
-        def parse(job, out=None):
+        def parse(job, block):
             s, c, _ = job
             return self.parse_window(data, index, s, c, cfg.pack_i8, want_cm,
-                                     out=out)
+                                     out=block)
 
         # Parse look-ahead: at most max_inflight windows parse ahead of the
         # device (a parsed 1080p window holds ~250 MB of int16 amplitudes).
@@ -745,23 +756,29 @@ class DecodePipeline:
         n_steps = max(-(-p.num_frames // w) for p in parts)
         layout = self._mesh_fmt()
 
+        def parse_shard(job, block):
+            lo, cnt = job
+            amps = self.parse_window(data, index, lo, cnt, False,
+                                     layout == "cm", out=block)
+            if layout == "cm" and _layout(amps) != "cm":
+                # No native cm parse: relay the window on the host, into
+                # its block.
+                cm = transform_fused.to_cm(amps.numpy(), bh, bw, CM_FOLD)
+                amps = _views(block, "cm", cnt, bh, bw)
+                amps[1].numpy()[...] = cm
+            return amps
+
         def parse_super(job):
             """Window t of every partition: per shard (start, count, I-frame
-            mask, parse result in the mesh layout), or None."""
+            mask, staged parse result in the mesh layout), or None."""
             t = job[0]
             shards = []
             for p in parts:
                 lo = p.frame_lo + t * w
                 cnt = min(w, p.frame_hi - lo)
-                if cnt <= 0:
-                    shards.append(None)
-                    continue
-                amps = self.parse_window(data, index, lo, cnt, False,
-                                         layout == "cm")
-                if layout == "cm" and _layout(amps) != "cm":
-                    # No native cm parse: relay the window on the host.
-                    amps = ("cm", transform_fused.to_cm(amps, bh, bw, CM_FOLD))
-                shards.append((lo, cnt, index.is_iframe[lo:lo + cnt], amps))
+                shards.append(None if cnt <= 0 else (
+                    lo, cnt, index.is_iframe[lo:lo + cnt],
+                    self._staged(parse_shard, (lo, cnt), hdr.blocks_per_plane)))
             return shards
 
         parsed = self._parse_ahead(
@@ -782,38 +799,30 @@ class DecodePipeline:
 
     def _dispatch_mesh(self, parsed, blocks_h: int, blocks_w: int,
                        layout: str):
-        """The device loop of the mesh mode, _dispatch's counterpart.
+        """The device loop of the mesh mode, _dispatch's counterpart over
+        steps.
 
         parsed: an iterator of (step, _, _, shards), shards as
         _decode_mesh's parse_super makes them.  Each shard with frames in
-        the step is padded and put on its device and runs the step on its
-        own carry there, with that device current (parallel.mesh._on), so
-        that its copies, kernel and allocations belong to its card.  Yields
-        the step's [(start, count, frames)] as the output ring of
-        num_output_buffers steps releases them.
+        the step runs the window routine (_window_routine) on its own lane,
+        with its device current (parallel.mesh._on), so that its copies,
+        kernel, allocations and landing belong to its card.  Yields the
+        step's [(start, count, frames)], the frames _Landed, as the output
+        ring of num_output_buffers steps releases them.
         """
-        w = self.config.frames_per_batch
-        step = self._get_step(blocks_h, blocks_w)
+        run = self._window_routine(blocks_h, blocks_w, 1, to_host=True)
+        lanes = [self._lane(dev, layout, blocks_h, blocks_w)
+                 for dev in self._mesh_devices]
         ring = max(1, self.config.num_output_buffers)
-        devices = self._mesh_devices
-        carries = [self._zero_carry(layout, blocks_h, blocks_w, dev)
-                   for dev in devices]
-
-        def run(d: int, item):
-            lo, cnt, seg_c, amps = item
-            seg = np.zeros(w, dtype=bool)
-            seg[:cnt] = seg_c
-            dev = devices[d]
-            frames, carries[d] = step(self._put_window(amps, cnt, w, dev),
-                                      self._put(seg, dev), carries[d])
-            return lo, cnt, frames
-
         pending: collections.deque = collections.deque()
         for _t, _c, _seg, shards in parsed:
-            pending.append([
-                _on(devices[d], run, d, item)
-                for d, item in enumerate(shards) if item is not None
-            ])
+            wins = []
+            for lane, item in zip(lanes, shards):
+                if item is not None:
+                    lo, cnt, seg_c, amps = item
+                    wins.append((lo, cnt, _on(lane.device, run, lane, cnt,
+                                              seg_c, amps)))
+            pending.append(wins)
             while len(pending) > ring:
                 yield pending.popleft()
         while pending:
@@ -904,7 +913,7 @@ class DecodePipeline:
         # The one parse worker's scratch for a seam window's bitstreams.
         scratch = np.empty(0, np.uint8)
 
-        def parse(job, out=None):
+        def parse(job, block):
             nonlocal scratch
             # Per-stream runs of this window; frame indices need not be
             # contiguous (iframes_only), so parse_window takes selections.
@@ -924,17 +933,16 @@ class DecodePipeline:
                 with prof.time("parse/seam_join"):
                     scratch, offs, lens, is_p = gather_spans(
                         datas, indices, ents, scratch)
+                amps = _views(block, "bm", c, bh, bw)
                 with prof.time("parse/window"):
-                    amps = parse_spans(
-                        scratch, offs, lens, is_p, nb,
-                        native=self._native_parse(),
-                        out=None if out is None
-                        else out[:3 * c * nb * 64].reshape(3 * c, nb, 64))
-                return amps.reshape(3, c, nb, 64)
+                    parse_spans(scratch, offs, lens, is_p, nb,
+                                native=self._native_parse(),
+                                out=amps.numpy().reshape(3 * c, nb, 64))
+                return amps
             si, fis = runs[0]
             return self.parse_window(datas[si], indices[si], 0, 0,
                                      cfg.pack_i8, want_cm,
-                                     frames=np.asarray(fis), out=out)
+                                     frames=np.asarray(fis), out=block)
 
         # One parse worker (the native parse is parallel inside) and
         # prefetch_batches windows of look-ahead.
@@ -945,7 +953,7 @@ class DecodePipeline:
         )
         try:
             for ents, c, frames in wins:
-                host = self._host_frames(frames, bh, bw, c)
+                host = self._host_frames(frames, bh, bw)
                 for i in range(c):
                     si, fi = ents[i]
                     yield si, fi, host[i]
@@ -979,40 +987,23 @@ class DecodePipeline:
         idx = np.array([i for i, _ in pairs], dtype=np.int64)
         return idx, np.stack([f for _, f in pairs])
 
-    def _host_frames(self, frames, blocks_h: int, blocks_w: int,
-                     count: int) -> np.ndarray:
-        """A window's frames -> host raster frames.
-
-        Landed frames (_Landed, the window's count frames in a host
-        buffer): output/wait waits for their copy's event, output/raster
-        rasters them into a fresh array (or copies them out where they are
-        raster already: nothing delivered may hold a staging buffer, whose
-        pinned block torch hands out again once it is dropped).
-
-        Device frames, rows beyond the window's count included: output/wait,
-        the wait for the work queued ahead of the copy (on CUDA a
-        synchronize of the current stream, which the in-order copy would
-        wait for anyway; on the CPU nothing); output/transfer, the D2H
-        alone; output/raster; and the counters of _count_copy, the rows
-        beyond count as pad."""
-        if isinstance(frames, _Landed):
-            with self.profiler.time("output/wait"):
-                if frames.event is not None:
-                    frames.event.synchronize()
-            host = frames.rows.numpy()
-            with self.profiler.time("output/raster"):
-                out = self._to_raster(host, blocks_h, blocks_w)
-                if np.may_share_memory(out, host):
-                    out = out.copy()
-            return out
+    def _host_frames(self, frames: _Landed, blocks_h: int,
+                     blocks_w: int) -> np.ndarray:
+        """A window's landed frames (_stage_out: its count frames in a host
+        buffer) -> host raster frames.  output/wait waits for their copy's
+        event; output/raster rasters them into a fresh array (or copies
+        them out where they are raster already: nothing delivered may hold
+        a staging buffer, whose pinned block torch hands out again once it
+        is dropped)."""
         with self.profiler.time("output/wait"):
-            if frames.is_cuda:
-                torch.cuda.current_stream(frames.device).synchronize()
-        with self.profiler.time("output/transfer"):
-            host = frames.cpu()
-        self._count_copy("d2h", [host], count, host.shape[0])
+            if frames.event is not None:
+                frames.event.synchronize()
+        host = frames.rows.numpy()
         with self.profiler.time("output/raster"):
-            return self._to_raster(host.numpy(), blocks_h, blocks_w)
+            out = self._to_raster(host, blocks_h, blocks_w)
+            if np.may_share_memory(out, host):
+                out = out.copy()
+        return out
 
     def _drain(self, item, blocks_h: int, blocks_w: int,
                device_resident: bool = False) -> DecodedWindow:
@@ -1023,7 +1014,7 @@ class DecodePipeline:
             # pad.
             return DecodedWindow(s, c, frames)
         return DecodedWindow(s, c, self._host_frames(frames, blocks_h,
-                                                     blocks_w, c)[:c])
+                                                     blocks_w))
 
     def decode_array(self, data: bytes, **kw) -> np.ndarray:
         """Decode fully into one (F, H, W) uint32 array, reassembled by

@@ -84,7 +84,7 @@ if os.environ.get("KERNEL_BOUND") == "1":
         c = min(w8, part.frame_hi - s0)
         amps = pipe.parse_window(data, index, s0, c)
         a = np.zeros((3, w8, hdr.blocks_per_plane, 64), np.int16)
-        a[:, :c] = amps
+        a[:, :c] = amps.numpy()
         seg = np.zeros(w8, bool)
         seg[:c] = index.is_iframe[s0:s0 + c]
         wins.append((torch.from_numpy(a).to(dev),

@@ -182,8 +182,13 @@ def test_live_reuses_warm_pipeline(stream, stored_frames, layout):
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, stored_frames)
     assert len(jpipe._step_cache) == 1
-    # One H2D a window: 23 frames, W=7.
+    # One H2D a window, 23 frames in windows of 7: each window parsed into a
+    # staging block of its own (_staged) and landed in another, no pad
+    # crossing either way.
     assert prof.probe("copy/h2d_bytes.pageable").count == 2 * 4
+    assert prof.probe("pipeline/slot_wait").count == 2 * 4 * 2
+    assert prof.probe("copy/h2d_pad_bytes").total == 0
+    assert prof.probe("copy/d2h_pad_bytes").total == 0
 
 
 @pytest.mark.parametrize("case", ["truncated-mid-frame", "open-ended-truncated",

@@ -199,7 +199,9 @@ def test_carry_from_a_jax_window_continues_in_the_port(jax_runtime, stream):
     outs = [np.asarray(first)]
     for s in range(w, index.num_frames, w):
         c = min(w, index.num_frames - s)
-        amps = port._put_window(port.parse_window(data, index, s, c), c, w)
+        amps = port._put_window(port._staged(
+            lambda job, block: port.parse_window(data, index, *job, out=block),
+            (s, c), index.header.blocks_per_plane), c, w)
         seg = np.zeros(w, dtype=bool)
         seg[:c] = index.is_iframe[s:s + c]
         frames, carry = step(amps, port._put(seg), carry)
@@ -293,10 +295,10 @@ def test_cm_carry_switches_layout_mid_stream(stream, monkeypatch):
     index = fmt.index_frames(data)
     real = port_centropy.decode_batch_cm
 
-    def decode_batch_cm(data, offs, lens, *args):
+    def decode_batch_cm(data, offs, lens, *args, **kw):
         if offs[0] == index.plane_off[0, 3]:  # window 1 starts at frame 3
             return None
-        return real(data, offs, lens, *args)
+        return real(data, offs, lens, *args, **kw)
 
     # The port parses with its own copy of the native codec.
     monkeypatch.setattr(port_centropy, "decode_batch_cm", decode_batch_cm)
@@ -306,9 +308,9 @@ def test_cm_carry_switches_layout_mid_stream(stream, monkeypatch):
     casts = []
     cast = pipe._carry_cast
 
-    def spy(carry, to_tag, *args):
+    def spy(carry, to_tag, blocks_h, blocks_w):
         casts.append((to_tag, tuple(carry.shape)))
-        return cast(carry, to_tag, *args)
+        return cast(carry, to_tag, blocks_h, blocks_w)
 
     pipe._carry_cast = spy
     np.testing.assert_array_equal(pipe.decode_array(data), want)

@@ -6,11 +6,10 @@ A 23-frame clip in windows of 7 has three full windows and a short one of
 2 frames, 5 rows of pad.  Each window waits once for its parse, is put on
 the device once and, decoded to the host, waits, copies back and is
 rastered once; only the short window is padded.  The copy counters count
-the bytes of the window as handed over: a window staged in a host buffer
-(the block-major parse) crosses as its real rows alone and its pad is
-zeroed on the device; a plain parse result (the cm and int8 layouts, the
-mesh loop) crosses padded.  A window drained to the host lands as its real
-rows alone, except in the mesh loop, which drains padded device frames.
+the bytes of the window as handed over: every window, in every layout and
+in the mesh loop too, is staged in a host buffer and crosses as its real
+rows alone, its pad zeroed on the device, and a window drained to the host
+lands as its real rows alone.
 Under a torch.profiler every probe of the decoding thread is also a
 ``user_annotation`` span in the exported trace; without one, no span is
 opened at all.
@@ -77,12 +76,9 @@ def test_window_probes_and_copy_counters(clip, layout, resident):
     assert _count(prof, "pipeline/pad") == 1
     assert _count(prof, "device/put") == WINDOWS
     assert "device/dispatch" not in prof.report()
-    h2d = H2D_FRAME[layout]
-    staged = layout == "default"
     assert _count(prof, "copy/h2d_bytes.pageable") == WINDOWS
-    assert _total(prof, "copy/h2d_bytes.pageable") == (
-        NF if staged else WINDOWS * FPB) * h2d
-    assert _total(prof, "copy/h2d_pad_bytes") == (0 if staged else PAD * h2d)
+    assert _total(prof, "copy/h2d_bytes.pageable") == NF * H2D_FRAME[layout]
+    assert _total(prof, "copy/h2d_pad_bytes") == 0
     assert _count(prof, "copy/h2d_bytes.pinned") == 0
     drained = 0 if resident else WINDOWS
     for name in ("output/wait", "output/transfer", "output/raster",
@@ -109,8 +105,9 @@ def test_stream_batches_count_their_pad(clip):
 
 
 def test_mesh_windows_wait_and_count_like_one_device(clip):
-    """The mesh loop puts each shard's window through _put_window and
-    waits for one parse a step."""
+    """The mesh loop puts each shard's window through _put_window as its
+    real rows alone, lands it as its real rows alone, and waits for one
+    parse a step."""
     prof = Profiler()
     pipe = DecodePipeline(DecodeConfig(frames_per_batch=FPB), prof,
                           mesh=make_mesh(2, 1, devices=["cpu"] * 2))
@@ -121,8 +118,9 @@ def test_mesh_windows_wait_and_count_like_one_device(clip):
     assert puts == len(wins) > steps and "device/dispatch" not in prof.report()
     assert _count(prof, "pipeline/parse_wait") == steps
     put_frames = _total(prof, "copy/h2d_bytes.pageable") / H2D_FRAME["default"]
-    assert put_frames == puts * FPB
-    assert put_frames - _total(prof, "copy/h2d_pad_bytes") / H2D_FRAME["default"] == NF
+    assert put_frames == NF and _total(prof, "copy/h2d_pad_bytes") == 0
+    assert _total(prof, "copy/d2h_bytes.pageable") == NF * D2H_FRAME
+    assert _total(prof, "copy/d2h_pad_bytes") == 0
 
 
 def test_trace_holds_the_pipeline_spans(clip, tmp_path):

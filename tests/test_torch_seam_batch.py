@@ -88,9 +88,12 @@ def _decode(datas, prof=None, iframes_only=False, scale=1, **kw):
     amps_seen = []
 
     def record(amps, c, w, device=None):
-        # A staged window is a tensor view of its staging buffer.
-        amps_seen.append(("staged", amps.numpy().copy()) if isinstance(amps, torch.Tensor)
-                         else ("array", amps if isinstance(amps, tuple) else amps.copy()))
+        # Every window is tensor views of its staging buffer.
+        arrays = amps[1:] if isinstance(amps, tuple) else (amps,)
+        copies = [a.numpy().copy() for a in arrays]
+        amps_seen.append(("staged" if all(isinstance(a, torch.Tensor) for a in arrays)
+                          else "array",
+                          (amps[0], *copies) if isinstance(amps, tuple) else copies[0]))
         return put(amps, c, w, device)
 
     pipe._put_window = record
@@ -129,7 +132,7 @@ def test_seam_amplitudes_equal_the_runs_parsed_one_by_one(archives, jax_ref, ifr
 def test_frames_match_jax_and_the_oracle(archives, jax_ref, cfg, iframes_only, scale):
     """The frames of a batch whose seam windows took the one call equal the
     JAX pipeline's decode_streams and the NumPy decoder's, downscaled; with
-    pack_i8 the window has no staging buffer and the call makes one array."""
+    pack_i8 too the seam window parses block-major into its staging buffer."""
     _native()
     jpipe, decode_array, downscale = jax_ref
     prof = Profiler()
@@ -139,7 +142,7 @@ def test_frames_match_jax_and_the_oracle(archives, jax_ref, cfg, iframes_only, s
     windows = _windows(_entries(archives, iframes_only))
     for runs, (kind, amps) in zip(windows, seen):
         if len(runs) > 1:
-            assert kind == ("array" if cfg else "staged") and amps.dtype == np.int16
+            assert kind == "staged" and amps.dtype == np.int16
     want = list(jpipe.decode_streams(archives, iframes_only=iframes_only, scale=scale))
     assert [(si, fi) for si, fi, _ in got] == [(si, fi) for si, fi, _ in want]
     full = [downscale(decode_array(d), scale) for d in archives]

@@ -3,9 +3,10 @@ CPU, where they are plain tensors and the same staging logic runs; cases
 on the card, where they are pinned blocks of torch's caching host
 allocator.
 
-The look-ahead parses each block-major window into a fresh host buffer,
-the put copies its real rows from there, and a window drained to the host
-lands in another right after its step.  A buffer is dropped once nothing
+Every parse, in every layout and from every producer (decode,
+decode_streams, decode_live's readers, the mesh's shards), writes its
+window into a fresh host block, the put copies its real rows from there,
+and a window drained to the host lands in another right after its step.  A buffer is dropped once nothing
 holds it: the parse that writes it holds it until it ends, and the
 allocator hands a pinned block out again only once the copies recorded on
 it have completed.  The cases hold the decode byte-equal to the JAX
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from mjpeg423_tpu.codec import decoder, encoder
+from mjpeg423_tpu.core import format as jfmt
 from mjpeg423_tpu.ops.scale import downscale_raster_host
 from mjpeg423_tpu_torch.native import centropy
 from mjpeg423_tpu_torch.ops import transform_fused
@@ -31,6 +33,7 @@ from mjpeg423_tpu_torch.runtime import DecodePipeline, Profiler, pipeline
 from mjpeg423_tpu_torch.runtime.live import decode_live_array, live_stream_bytes
 from mjpeg423_tpu_torch.runtime.serve import StreamPool
 from mjpeg423_tpu_torch.utils.config import DecodeConfig
+from tests_helpers_overflow import craft_wide_stream
 from torch_twins import LAYOUTS, cuda, make_test_frames  # noqa: F401 - fixture
 
 H, W, NF, FPB = 48, 64, 41, 2
@@ -92,9 +95,9 @@ def _in_thread(fn, timeout=120.0):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_more_windows_than_slots_twice(clip, layout):
     """21 windows of 2 frames (the last of 1), more than 3 times the
-    windows decode() holds at once, twice on one pipeline.  Block-major
-    parses into a buffer of its own each window; every layout lands each
-    drained window in one."""
+    windows decode() holds at once, twice on one pipeline.  Every layout
+    parses each window into a buffer of its own and lands each drained
+    window in another."""
     data, want = clip
     prof = Profiler()
     pipe = _pipe(prof, **LAYOUTS[layout])
@@ -102,9 +105,8 @@ def test_more_windows_than_slots_twice(clip, layout):
         np.testing.assert_array_equal(pipe.decode_array(data), want)
     windows = -(-NF // FPB)
     assert windows > 3 * (pipe.config.prefetch_batches + 4)
-    staged = layout == "default" or not centropy.native_available()
     got = prof.report()["pipeline/slot_wait"]["count"]
-    assert got == 2 * windows * (2 if staged else 1)
+    assert got == 2 * windows * 2
 
 
 def test_slots_are_reused_after_warmup(clip, monkeypatch):
@@ -256,18 +258,32 @@ def test_delivered_frames_do_not_alias_a_slot(clip, kind, monkeypatch):
     np.testing.assert_array_equal(np.concatenate([w.frames for w in wins]), want)
 
 
+def _spy_landings(monkeypatch):
+    """Record whether each window drained to the host came as _Landed."""
+    kinds: list = []
+    drain = DecodePipeline._host_frames
+
+    def spy(self, frames, *args):
+        kinds.append(isinstance(frames, pipeline._Landed))
+        return drain(self, frames, *args)
+
+    monkeypatch.setattr(DecodePipeline, "_host_frames", spy)
+    return kinds
+
+
 @pytest.mark.parametrize("path", ["live", "coef_major", "pack_i8", "mesh"])
-def test_plain_parse_results_copy_as_before(clip, path):
-    """What is not staged crosses as before, pad rows and all: decode_live's
-    own parses, the native cm and int8 layouts and the mesh loop put
-    padded pageable windows; the mesh also drains padded device frames,
-    while the others' windows land in host buffers after _dispatch's
-    step."""
+def test_plain_parse_results_copy_as_before(clip, path, monkeypatch):
+    """decode_live's own parses, the native cm and int8 layouts and the
+    mesh loop cross as the block-major decode does: each window's real
+    rows alone from its staging block, and every window, the mesh's
+    shards' too, lands in a host buffer right after its step
+    (_stage_out): no pad byte crosses either way."""
     data, want = clip
     prof = Profiler()
     if path in ("coef_major", "pack_i8") and not centropy.native_available():
         pytest.skip("the cm and int8 parses are native; without the native "
                     "codec they fall back to block-major, other bytes")
+    landed = _spy_landings(monkeypatch)
     if path == "live":
         got = decode_live_array(io.BytesIO(live_stream_bytes(data)),
                                 config=DecodeConfig(frames_per_batch=FPB),
@@ -280,14 +296,101 @@ def test_plain_parse_results_copy_as_before(clip, path):
         got = _pipe(prof, **LAYOUTS[path]).decode_array(data)
     np.testing.assert_array_equal(got, want)
     total = prof.report()
-    puts = total["device/put"]["count"]
     h2d = {"pack_i8": 3 * NB * (64 + 2)}.get(path, H2D_FRAME)
-    assert total["copy/h2d_bytes.pageable"]["total"] == puts * FPB * h2d
-    assert total["copy/h2d_pad_bytes"]["total"] == (puts * FPB - NF) * h2d
+    assert total["copy/h2d_bytes.pageable"]["total"] == NF * h2d
+    assert total["copy/d2h_bytes.pageable"]["total"] == NF * D2H_FRAME
+    assert total["copy/h2d_pad_bytes"]["total"] == 0
+    assert total["copy/d2h_pad_bytes"]["total"] == 0
     drains = total["output/wait"]["count"]
-    d2h_rows = drains * FPB if path == "mesh" else NF
-    assert total["copy/d2h_bytes.pageable"]["total"] == d2h_rows * D2H_FRAME
-    assert total["copy/d2h_pad_bytes"]["total"] == (d2h_rows - NF) * D2H_FRAME
+    assert landed == [True] * drains and drains == total["device/put"]["count"]
+
+
+PRODUCERS = ["decode", "decode_streams", "decode_live", "mesh"]
+CONFIGS = {**LAYOUTS, "spec_segments": {"spec_segments": 2}}
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+@pytest.mark.parametrize("producer", PRODUCERS)
+def test_every_producer_and_layout_is_staged(clip, producer, config,
+                                             monkeypatch):
+    """Each entry point in each configuration (the mesh on two CPU
+    devices, cm among them) is byte-equal to the JAX package's decoder;
+    each window it puts is a view of a staging block of a whole window of
+    block-major amplitudes, and no pad byte crosses either way."""
+    data, want = clip
+    prof = Profiler()
+    bufs = _spy_buffers(monkeypatch)
+    puts: list = []
+    put = DecodePipeline._put_window
+
+    def spy(self, amps, c, w, device=None):
+        puts.append(amps)
+        return put(self, amps, c, w, device)
+
+    monkeypatch.setattr(DecodePipeline, "_put_window", spy)
+    cfg = DecodeConfig(frames_per_batch=FPB, **CONFIGS[config])
+    if producer == "decode_live":
+        got = decode_live_array(io.BytesIO(live_stream_bytes(data)),
+                                config=cfg, device="cpu", profiler=prof)
+    elif producer == "mesh":
+        got = DecodePipeline(cfg, prof, mesh=make_mesh(
+            2, 1, devices=["cpu"] * 2)).decode_array(data)
+    elif producer == "decode_streams":
+        got = DecodePipeline(cfg, prof, device="cpu").decode_streams_arrays(
+            [data, data])
+        got, want = np.concatenate(got), np.concatenate([want, want])
+    else:
+        got = DecodePipeline(cfg, prof, device="cpu").decode_array(data)
+    np.testing.assert_array_equal(got, want)
+    blocks = {b.data_ptr() for b in bufs if b.nbytes == FPB * H2D_FRAME}
+    assert puts
+    for amps in puts:
+        arrays = amps[1:] if isinstance(amps, tuple) else (amps,)
+        assert {a.untyped_storage().data_ptr() for a in arrays} <= blocks
+    assert len({(a[1] if isinstance(a, tuple) else a).untyped_storage()
+                 .data_ptr() for a in puts}) == len(puts)
+    total = prof.report()
+    assert total["copy/h2d_pad_bytes"]["total"] == 0
+    assert total["copy/d2h_pad_bytes"]["total"] == 0
+
+
+def test_an_i8_overflow_parses_block_major_into_its_block(monkeypatch):
+    """pack_i8 over a clip whose first two windows fit int8 and whose last
+    three hold AC amplitudes beyond it: each overflowing window falls back
+    to block-major in the very block the int8 parse was handed, and the
+    decode is byte-equal to the JAX package's decoder."""
+    if not centropy.native_available():
+        pytest.skip("the int8 parse is native")
+    wide, _ = craft_wide_stream(np.random.default_rng(7))
+    small = encoder.encode_frames(make_test_frames(
+        np.random.default_rng(8), num_frames=4, h=16, w=16), max_i_interval=4)
+    data = jfmt.serialize_file(16, 16, jfmt.parse_file(small).frames
+                               + jfmt.parse_file(wide).frames)
+    from mjpeg423_tpu_torch.native import centropy as port_centropy
+    handed: list = []
+    i8 = port_centropy.decode_batch_i8
+
+    def spy(*args, out=None):
+        handed.append(out[0].ctypes.data)
+        return i8(*args, out=out)
+
+    monkeypatch.setattr(port_centropy, "decode_batch_i8", spy)
+    _spy_buffers(monkeypatch)  # held, so that no two blocks share an address
+    puts: list = []
+    put = DecodePipeline._put_window
+
+    def put_spy(self, amps, c, w, device=None):
+        puts.append(amps)
+        return put(self, amps, c, w, device)
+
+    monkeypatch.setattr(DecodePipeline, "_put_window", put_spy)
+    prof = Profiler()
+    got = _pipe(prof, pack_i8=True).decode_array(data)
+    np.testing.assert_array_equal(got, decoder.decode_stream_array(data))
+    assert [isinstance(a, tuple) for a in puts] == [True] * 2 + [False] * 3
+    assert prof.probe("parse/i8_windows").count == 2
+    assert sorted((a[1] if isinstance(a, tuple) else a).data_ptr()
+                  for a in puts) == sorted(handed)
 
 
 def test_threads_sharing_a_pipeline(clip):
@@ -324,19 +427,39 @@ def test_threads_sharing_a_pipeline(clip):
 
 @pytest.mark.parametrize("layout", ["coef_major", "pack_i8"])
 def test_native_layouts_ask_for_no_parse_buffer(clip, layout, monkeypatch):
-    """The native cm and int8 parses make their own arrays, so neither
-    warmup() nor a decode asks for a buffer of a window's amplitudes; the
-    drained windows still land in buffers of frames."""
+    """The native cm and int8 parses write into the staging block they
+    were handed: warmup() runs one staged window in the layout and one
+    block-major, each asking for a block of a window's block-major
+    amplitudes and a buffer of its frames; a decode asks for one of each a
+    window, and every window it puts, in its own layout, is a view of its
+    block."""
     if not centropy.native_available():
         pytest.skip("without the native codec both layouts parse "
                     "block-major")
     data, want = clip
     bufs = _spy_buffers(monkeypatch)
+    puts: list = []
+    put = DecodePipeline._put_window
+
+    def spy(self, amps, c, w, device=None):
+        puts.append(amps)
+        return put(self, amps, c, w, device)
+
+    monkeypatch.setattr(DecodePipeline, "_put_window", spy)
     pipe = _pipe(**LAYOUTS[layout])
     pipe.warmup(W, H)
-    assert not bufs
+    assert sorted(b.nbytes for b in bufs) == sorted(
+        [FPB * H2D_FRAME, FPB * D2H_FRAME] * 2)
+    del bufs[:], puts[:]
     np.testing.assert_array_equal(pipe.decode_array(data), want)
-    assert [b.nbytes for b in bufs] == [FPB * D2H_FRAME] * -(-NF // FPB)
+    windows = -(-NF // FPB)
+    assert sorted(b.nbytes for b in bufs) == sorted(
+        [FPB * H2D_FRAME, FPB * D2H_FRAME] * windows)
+    blocks = {b.data_ptr() for b in bufs if b.nbytes == FPB * H2D_FRAME}
+    tag = {"coef_major": "cm", "pack_i8": "i8"}[layout]
+    assert [a[0] for a in puts] == [tag] * windows
+    assert {a.untyped_storage().data_ptr()
+            for amps in puts for a in amps[1:]} == blocks
 
 
 def test_a_resident_decode_queues_no_d2h(clip):
@@ -417,3 +540,33 @@ def test_stream_pool_stages_every_window_on_the_card(cuda):
     for name in ("copy/h2d_bytes.pageable", "copy/d2h_bytes.pageable"):
         assert total.get(name, {}).get("total", 0) == 0, name
     assert total["copy/d2h_bytes.pinned"]["total"] == 4 * nf * h * w * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["coef_major", "pack_i8", "mesh"])
+def test_every_layout_and_the_mesh_staged_at_1080p_on_the_card(cuda, path):
+    """A 1080p clip of 19 windows of 2 frames, after warmup(), in the cm and
+    int8 layouts and on a mesh of the card twice, byte-equal to the JAX
+    package's oracle: every copy byte of both ways crosses from or into
+    pinned memory and no pad byte crosses."""
+    nf, h, w = 37, 1080, 1920
+    frames = make_test_frames(np.random.default_rng(12), num_frames=nf, h=h, w=w)
+    data = encoder.encode_frames(frames, max_i_interval=12)
+    want = decoder.decode_stream_array(data)
+    if path == "mesh":
+        pipe = DecodePipeline(DecodeConfig(frames_per_batch=FPB), Profiler(),
+                              mesh=make_mesh(2, 1, devices=[cuda] * 2))
+    else:
+        pipe = DecodePipeline(DecodeConfig(frames_per_batch=FPB, **LAYOUTS[path]),
+                              Profiler(), device=cuda)
+    pipe.warmup(w, h)
+    prof = pipe.profiler = Profiler()
+    np.testing.assert_array_equal(pipe.decode_array(data), want)
+    total = prof.report()
+    nb = (h // 8) * (w // 8)
+    if path != "pack_i8":
+        assert total["copy/h2d_bytes.pinned"]["total"] == nf * 3 * nb * 64 * 2
+    assert total["copy/d2h_bytes.pinned"]["total"] == nf * h * w * 4
+    for name in ("copy/h2d_bytes.pageable", "copy/d2h_bytes.pageable",
+                 "copy/h2d_pad_bytes", "copy/d2h_pad_bytes"):
+        assert total.get(name, {}).get("total", 0) == 0, name
