@@ -1,5 +1,6 @@
 """Copied from mjpeg423_tpu/native/centropy.py at commit bfc8537; the build
-ladder and the threading of the wrappers are the port's own.
+ladder, the threading of the wrappers and blocked_to_raster's out= are the
+port's own.
 
 ctypes bindings for the native entropy codec (centropy.c).
 
@@ -711,7 +712,8 @@ def encode_plane(coeffs: np.ndarray) -> bytes:
 
 
 def blocked_to_raster(
-    blocked: np.ndarray, blocks_h: int, blocks_w: int
+    blocked: np.ndarray, blocks_h: int, blocks_w: int,
+    out: np.ndarray | None = None,
 ) -> np.ndarray | None:
     """Native blocked->raster frame conversion (threaded over frames).
 
@@ -719,6 +721,8 @@ def blocked_to_raster(
     (the fused kernel's raster=False output, rows_per_step fold included).
     Returns (W, blocks_h*8, blocks_w*8) uint32, or None when the native
     codec is unavailable (caller falls back to the NumPy permutation).
+    out: a C-contiguous uint32 array of that shape to write the frames
+    into (and return) instead of a fresh one.
     """
     lib = _load()
     if lib is None:
@@ -731,7 +735,13 @@ def blocked_to_raster(
             f"blocked shape {b.shape} inconsistent with "
             f"{blocks_h}x{blocks_w} blocks"
         )
-    out = np.empty((wf, blocks_h * 8, blocks_w * 8), dtype=np.uint32)
+    shape = (wf, blocks_h * 8, blocks_w * 8)
+    if out is None:
+        out = np.empty(shape, dtype=np.uint32)
+    elif (out.shape != shape or out.dtype != np.uint32
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be a C-contiguous uint32 array of shape "
+                         f"{shape}, not {out.dtype} {out.shape}")
 
     def run(lo: int, hi: int) -> int:
         lib.mj423_blocked_to_raster(

@@ -577,18 +577,27 @@ def _launch_window_i8(
 
 
 def blocked_to_raster_host(
-    blocked: np.ndarray, blocks_h: int, blocks_w: int
+    blocked: np.ndarray, blocks_h: int, blocks_w: int,
+    out: np.ndarray | None = None,
 ) -> np.ndarray:
     """Host raster conversion of the blocked layout: (W, 8, bh/k, 8, k*bw)
     uint32 -> (W, 8*bh, 8*bw).  The native codec's copy when it is built,
-    else the NumPy permutation."""
-    native = centropy.blocked_to_raster(blocked, blocks_h, blocks_w)
+    else the NumPy permutation.  out: a C-contiguous uint32 array of the
+    result's shape to write it into (and return) instead of a fresh one."""
+    native = centropy.blocked_to_raster(blocked, blocks_h, blocks_w, out)
     if native is not None:
         return native
     w, _, g, _, _ = blocked.shape
     k = blocks_h // g
     x = np.asarray(blocked).reshape(w, 8, g, 8, k, blocks_w)
-    return x.transpose(0, 2, 4, 3, 5, 1).reshape(w, blocks_h * 8, blocks_w * 8)
+    x = x.transpose(0, 2, 4, 3, 5, 1).reshape(w, blocks_h * 8, blocks_w * 8)
+    if out is None:
+        return x
+    if out.shape != x.shape or out.dtype != np.uint32:
+        raise ValueError(f"out must be a uint32 array of shape {x.shape}, "
+                         f"not {out.dtype} {out.shape}")
+    np.copyto(out, x)
+    return out
 
 
 def carry_from_jax(carry, device) -> torch.Tensor:

@@ -18,7 +18,8 @@ host and warmup.
       recurrence + IDCT + colour in one kernel.  Windows of W frames carry
       the int16 coefficient state of their last frame forward, so window
       boundaries need no GOP alignment.
-  Stage C (host)          device->host transfer, blocked->raster, delivery.
+  Stage C (host)          device->host transfer, blocked->raster into a
+      recycled host array (_FramePool), delivery.
 
 decode() and decode_streams() share one window loop (_window_loop): parse
 look-ahead on a thread pool (_parse_ahead), then the device loop
@@ -36,7 +37,10 @@ in another buffer right after its step (_stage_out).  Neither copy blocks
 the decoding thread.  A buffer is dropped once nothing holds it; torch's
 caching host allocator reuses its pinned block only after the copy that
 read or filled it has completed, and a parse that close() cannot stop
-holds its own block until it ends.
+holds its own block until it ends.  The drain rasters each window into a
+pageable array of the pipeline's _FramePool, which hands an array out again
+only once nothing delivered from it is alive, so a consumer that drops its
+windows does not pay the first touch of fresh pages every window.
 
 Every window runs one of three kernels, chosen by the layout its parse
 produced (ops/transform_fused -> csrc/decode_window.cu): block-major K1
@@ -62,6 +66,8 @@ import collections
 import dataclasses
 import itertools
 import math
+import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Sequence
 
@@ -133,6 +139,47 @@ class _Landed:
 
     rows: torch.Tensor
     event: object
+
+
+class _FramePool:
+    """The uint32 host arrays the drain rasters windows into, recycled.
+
+    An array is handed out again only once the pool's own reference to it
+    is the last one: nothing delivered from it (a window's rows, a frame,
+    a tensor made from either) is alive, so no delivered frame changes.  A
+    shape's list holds the `cap` arrays handed out last; an array still
+    held when the list needs its place is forgotten, and its holder owns
+    it outright.  So a consumer that drops its windows gets the same few
+    arrays back, one that keeps them gets fresh ones as before, and the
+    pool keeps at most `cap` arrays a shape that nothing else holds.
+    Threads sharing a pipeline share its pool; take() is under a lock."""
+
+    def __init__(self, cap: int):
+        self._cap = cap
+        self._lock = threading.Lock()
+        self._arrays: dict[tuple, list[np.ndarray]] = {}
+        self._alone = self._refs([np.empty(0, np.uint32)], 0)
+
+    @staticmethod
+    def _refs(arrays: list, i: int) -> int:
+        """The reference count of arrays[i], measured the same way for the
+        calibration (_alone: held by its list alone) and for each test."""
+        return sys.getrefcount(arrays[i])
+
+    def take(self, shape: tuple) -> tuple[np.ndarray, bool]:
+        """An array of `shape` that nothing else holds, and whether it is a
+        recycled one (else it is fresh)."""
+        with self._lock:
+            arrays = self._arrays.setdefault(shape, [])
+            for i in range(len(arrays)):
+                if self._refs(arrays, i) <= self._alone:
+                    arr = arrays.pop(i)
+                    arrays.append(arr)
+                    return arr, True
+            arr = np.empty(shape, np.uint32)
+            arrays.append(arr)
+            del arrays[:-self._cap]
+            return arr, False
 
 
 @dataclasses.dataclass
@@ -223,6 +270,7 @@ class DecodePipeline:
         else:
             self._mesh_devices = data_devices(mesh, self.config.use_pallas)
             self.device = self._mesh_devices[0]
+        self._frame_pool = _FramePool(max(1, self.config.num_output_buffers))
 
     def _put(self, x, device: torch.device | None = None):
         """Host array -> `device` (default: this pipeline's), through
@@ -367,12 +415,21 @@ class DecodePipeline:
         return _Lane(device, layout,
                      torch.zeros(shape, dtype=torch.int16, device=device))
 
-    def _to_raster(self, host: np.ndarray, blocks_h: int,
-                   blocks_w: int) -> np.ndarray:
-        """Drain-side raster conversion when frames arrive blocked."""
-        if host.ndim == 3:
-            return host
-        return transform_fused.blocked_to_raster_host(host, blocks_h, blocks_w)
+    def _to_raster(self, host: np.ndarray, blocks_h: int, blocks_w: int,
+                   out: np.ndarray | None = None) -> np.ndarray:
+        """Drain-side raster conversion of landed frames: the native
+        permutation where they arrive blocked; raster frames
+        (raster_on_device, or scaled) as they are.  out: a uint32 array of
+        the raster frames' shape to write them into and return instead
+        (raster frames copied by torch, threaded)."""
+        if host.ndim != 3:
+            return transform_fused.blocked_to_raster_host(host, blocks_h,
+                                                          blocks_w, out=out)
+        if out is not None:
+            torch.from_numpy(out.view(np.int32)).copy_(
+                torch.from_numpy(host.view(np.int32)))
+            return out
+        return host
 
     def _get_downscale(self, blocks_h: int, blocks_w: int, f: int):
         """The box downscale (ops/scale.py) applied to the step's output on
@@ -991,18 +1048,26 @@ class DecodePipeline:
                      blocks_w: int) -> np.ndarray:
         """A window's landed frames (_stage_out: its count frames in a host
         buffer) -> host raster frames.  output/wait waits for their copy's
-        event; output/raster rasters them into a fresh array (or copies
-        them out where they are raster already: nothing delivered may hold
-        a staging buffer, whose pinned block torch hands out again once it
-        is dropped)."""
+        event; output/raster takes an array of the whole window's shape
+        from the pipeline's _FramePool and rasters the frames into its
+        first count rows (or copies them there, where they are raster
+        already: nothing delivered may hold a staging buffer, whose pinned
+        block torch hands out again once it is dropped), which are
+        delivered.  Counters: output/reused or output/fresh, 1 a window, as
+        the array was recycled or new."""
         with self.profiler.time("output/wait"):
             if frames.event is not None:
                 frames.event.synchronize()
         host = frames.rows.numpy()
+        c = host.shape[0]
+        shape = host.shape[1:] if host.ndim == 3 else (8 * blocks_h,
+                                                       8 * blocks_w)
         with self.profiler.time("output/raster"):
-            out = self._to_raster(host, blocks_h, blocks_w)
-            if np.may_share_memory(out, host):
-                out = out.copy()
+            arr, reused = self._frame_pool.take(
+                (self.config.frames_per_batch,) + shape)
+            out = self._to_raster(host, blocks_h, blocks_w, arr[:c])
+        self.profiler.add_size("output/reused" if reused else "output/fresh",
+                               1)
         return out
 
     def _drain(self, item, blocks_h: int, blocks_w: int,

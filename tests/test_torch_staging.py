@@ -570,3 +570,208 @@ def test_every_layout_and_the_mesh_staged_at_1080p_on_the_card(cuda, path):
     for name in ("copy/h2d_bytes.pageable", "copy/d2h_bytes.pageable",
                  "copy/h2d_pad_bytes", "copy/d2h_pad_bytes"):
         assert total.get(name, {}).get("total", 0) == 0, name
+
+
+# ----- The drain's recycled host arrays (pipeline._FramePool) -------------
+
+def _free_arrays(pipe) -> dict:
+    """Per shape, how many of the pool's arrays nothing else holds."""
+    pool = pipe._frame_pool
+    return {shape: sum(pool._refs(arrays, i) <= pool._alone
+                       for i in range(len(arrays)))
+            for shape, arrays in pool._arrays.items()}
+
+
+def test_kept_windows_stay_byte_equal_at_1080p():
+    """A 1080p clip in windows of 2, its consumer keeping every other
+    window and dropping the rest: the dropped windows' arrays are rastered
+    into again, and every kept window still holds the JAX package's
+    frames at the end."""
+    h, w, nf = 1080, 1920, 9
+    frames = make_test_frames(np.random.default_rng(24), num_frames=nf, h=h,
+                              w=w)
+    data = encoder.encode_frames(frames, max_i_interval=4)
+    prof = Profiler()
+    kept = []
+    i = 0  # not enumerate: its cached result tuple would hold each window
+    for win in _pipe(prof).decode(data):
+        if i % 2 == 0:
+            kept.append(win)
+        i += 1
+        del win
+    want = decoder.decode_stream_array(data)
+    assert [(k.start_frame, k.count) for k in kept] == [(0, 2), (4, 2), (8, 1)]
+    for k in kept:
+        np.testing.assert_array_equal(
+            k.frames, want[k.start_frame:k.start_frame + k.count])
+    total = prof.report()
+    assert total["output/reused"]["total"] >= 2
+    assert (total["output/reused"]["total"] + total["output/fresh"]["total"]
+            == 5)
+
+
+@pytest.mark.parametrize("buffers", [1, 4])
+def test_dropped_windows_recycle_one_array(clip, buffers):
+    """A consumer that drops each window as it comes gets one array back
+    window after window; the pool never holds more than num_output_buffers
+    arrays a shape that nothing else holds, also after decode_array, which
+    keeps every window until it returns."""
+    data, want = clip
+    prof = Profiler()
+    pipe = _pipe(prof, num_output_buffers=buffers)
+    got = []
+    for win in pipe.decode(data):
+        got.append(win.frames.copy())
+        del win
+        assert all(n <= buffers for n in _free_arrays(pipe).values())
+    np.testing.assert_array_equal(np.concatenate(got), want)
+    windows = -(-NF // FPB)
+    total = prof.report()
+    assert total["output/fresh"]["total"] == 1
+    assert total["output/reused"]["total"] == windows - 1
+    np.testing.assert_array_equal(pipe.decode_array(data), want)
+    assert _free_arrays(pipe) == {(FPB, H, W): buffers}
+    assert total["output/raster"]["count"] == windows
+
+
+def test_kept_thumbnails_stay_byte_equal():
+    """decode_streams(iframes_only=True, scale=4) over three archives in
+    windows of 2: the thumbnails of every other window are kept past their
+    window, the others dropped, so later windows land in recycled arrays;
+    every kept thumbnail still equals the JAX package's I-frame,
+    downscaled, at the end."""
+    rng = np.random.default_rng(25)
+    datas = [encoder.encode_frames(
+        make_test_frames(rng, num_frames=n, h=H, w=W), max_i_interval=3)
+        for n in (13, 9, 11)]
+    prof = Profiler()
+    kept = []
+    i = 0
+    for si, fi, thumb in _pipe(prof).decode_streams(datas, iframes_only=True,
+                                                    scale=4):
+        if (i // FPB) % 2 == 0:
+            kept.append((si, fi, thumb))
+        i += 1
+        del thumb
+    assert len(kept) > 4
+    for si, fi, thumb in kept:
+        want = downscale_raster_host(
+            decoder.decode_stream_array(datas[si])[fi:fi + 1], 4)[0]
+        assert jfmt.index_frames(datas[si]).is_iframe[fi]
+        np.testing.assert_array_equal(thumb, want)
+    assert prof.report()["output/reused"]["total"] > 0
+
+
+@pytest.mark.parametrize("kind", ["blocked", "raster_on_device", "scale2"])
+def test_a_short_last_window_delivers_its_count_rows(clip, kind):
+    """41 frames in windows of 2: every window delivers exactly its count
+    rows, the last one 1, from an array of the whole window's shape."""
+    data, want = clip
+    kw = {"raster_on_device": True} if kind == "raster_on_device" else {}
+    scale = 2 if kind == "scale2" else 1
+    want = downscale_raster_host(want, scale)
+    wins = list(_pipe(**kw).decode(data, scale=scale))
+    assert [w.frames.shape for w in wins] == [
+        (w.count, H // scale, W // scale) for w in wins]
+    assert wins[-1].count == 1
+    assert wins[-1].frames.base.shape == (FPB, H // scale, W // scale)
+    np.testing.assert_array_equal(wins[-1].frames, want[-1:])
+
+
+def test_a_pool_array_comes_back_only_once_nothing_holds_it():
+    """Any view of an array, a frame of it or a tensor made from it keeps
+    it out of the pool; once the last is gone the same memory comes back.
+    An array the pool forgot to make room stays its holder's."""
+    pool = pipeline._FramePool(4)
+    shape = (2, 4, 8)
+    arr, reused = pool.take(shape)
+    assert not reused
+    ptr = arr.ctypes.data
+    rows, frame = arr[:1], arr[1]
+    tensor = torch.from_numpy(arr[:1])
+    del arr
+    others = []
+    for holder in ("rows", "frame", "tensor"):
+        other, reused = pool.take(shape)
+        assert not reused and other.ctypes.data != ptr
+        others.append(other)
+        if holder == "rows":
+            del rows
+        elif holder == "frame":
+            del frame
+        else:
+            del tensor
+    again, reused = pool.take(shape)
+    assert reused and again.ctypes.data == ptr
+    del others, other, again
+    assert _free_count(pool, shape) == 4
+    small = pipeline._FramePool(2)
+    held = [small.take(shape)[0] for _ in range(3)]
+    assert len(small._arrays[shape]) == 2
+    assert _free_count(small, shape) == 0
+    first = held[0].ctypes.data
+    del held
+    assert _free_count(small, shape) == 2
+    assert first not in {a.ctypes.data for a in small._arrays[shape]}
+
+
+def _free_count(pool, shape) -> int:
+    arrays = pool._arrays[shape]
+    return sum(pool._refs(arrays, i) <= pool._alone for i in range(len(arrays)))
+
+
+def test_threads_never_share_a_pool_array():
+    """More threads than cores take, mark, check and drop arrays of one
+    pool, switching often: no array is handed to a second holder while the
+    first still holds it."""
+    pool = pipeline._FramePool(3)
+    errors: list = []
+
+    def work(tag):
+        try:
+            for _ in range(300):
+                arr, _ = pool.take((2, 3))
+                arr.fill(tag)
+                for _ in range(3):
+                    if not (arr == tag).all():
+                        errors.append(tag)
+                del arr
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i + 1,), daemon=True)
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:5]
+    assert len(pool._arrays[(2, 3)]) <= 3
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_raster_into_a_given_array(native, monkeypatch):
+    """blocked_to_raster_host(out=) writes the frames it would return into
+    `out`, by the native permutation or the NumPy one; an `out` of another
+    shape raises."""
+    if not native:
+        monkeypatch.setattr(centropy, "blocked_to_raster",
+                            lambda *a: None)
+    elif not centropy.native_available():
+        pytest.skip("no native codec build")
+    blk = np.random.default_rng(26).integers(
+        0, 2 ** 32, (3, 8, 2, 8, 12), dtype=np.uint32)
+    want = transform_fused.blocked_to_raster_host(blk, 4, 6)
+    out = np.full((3, 32, 48), 7, np.uint32)
+    got = transform_fused.blocked_to_raster_host(blk, 4, 6, out=out)
+    assert got is out
+    np.testing.assert_array_equal(out, want)
+    with pytest.raises(ValueError):
+        transform_fused.blocked_to_raster_host(
+            blk, 4, 6, out=np.empty((2, 32, 48), np.uint32))
